@@ -1,0 +1,131 @@
+"""LTX-Video text-to-video CLI of the PyTorch port, random-init smoke mode.
+
+Builds a preset's full-width modules with random weights from ``--seed``
+(DiT and VAE in ``--dtype``, T5-XXL with int8 weights resident) on
+``--device`` and runs one generation.  Loading checkpoints is not ported yet.
+
+Run: python -m candle_video_tpu_torch.cli --height 256 --width 384 \
+         --num-frames 25 --output-type latent
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+
+from candle_video_tpu.utils.tokenizer import MockTokenizer
+
+from .models.ltx_video import t5 as T5
+from .models.ltx_video import transformer as TF
+from .models.ltx_video import vae as V
+from .models.ltx_video.configs import get_config_by_version, t5_xxl
+from .models.ltx_video.pipeline import LtxPipeline, generate
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="candle-video-tpu-torch",
+        description="LTX-Video text-to-video on an NVIDIA GPU (PyTorch + CUDA kernels)")
+    p.add_argument("--prompt", type=str, default="A cat walking on grass")
+    p.add_argument("--negative-prompt", type=str,
+                   default="worst quality, inconsistent motion, blurry, jittery, distorted")
+    p.add_argument("--version", type=str, default="0.9.8-2b-distilled",
+                   help="preset: 0.9.5 | 0.9.6-dev | 0.9.6-distilled | "
+                        "0.9.8-2b-distilled | 0.9.8-13b-dev | 0.9.8-13b-distilled")
+    p.add_argument("--height", type=int, default=512)
+    p.add_argument("--width", type=int, default=768)
+    p.add_argument("--num-frames", type=int, default=97)
+    p.add_argument("--num-inference-steps", type=int, default=None)
+    p.add_argument("--guidance-scale", type=float, default=None)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--output-type", type=str, default="tensor", choices=["tensor", "latent"])
+    p.add_argument("--output-dir", type=str, default="output")
+    p.add_argument("--gif", action="store_true", help="also write video.gif (needs imageio)")
+    p.add_argument("--mp4", action="store_true", help="also write video.mp4 (needs imageio)")
+    p.add_argument("--progress", action="store_true", help="print a line per denoise step")
+    p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float32"],
+                   help="model dtype; the CUDA kernels take bfloat16")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cuda' raises when no GPU is present")
+    return p
+
+
+def build_random_pipeline(version: str, device, dtype=torch.bfloat16, seed: int = 0,
+                          max_sequence_length: int = 128) -> LtxPipeline:
+    """A preset's full-width pipeline with random weights made on ``device``
+    from ``seed``: DiT and VAE decoder in ``dtype``, T5-XXL int8-resident."""
+    cfg = get_config_by_version(version)
+    device = torch.device(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    transformer = TF.init_random(cfg.transformer, device, dtype, generator=g)
+    vae = V.init_random(cfg.vae, device, dtype, generator=g)
+    t5_cfg = t5_xxl()
+    t5 = T5.init_random_int8(t5_cfg, device, dtype)
+    return LtxPipeline(config=cfg, transformer=transformer, vae=vae, t5=t5,
+                       t5_config=t5_cfg,
+                       tokenizer=MockTokenizer(model_max_length=max_sequence_length))
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("CUDA is not available: this run needs an NVIDIA GPU "
+                         "(pass --device cpu to run on the CPU on purpose)")
+    return device
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    print(f"candle-video-tpu-torch | preset {args.version} | device {device}"
+          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    print("random-init models (smoke mode): checkpoint loading is not ported yet")
+    t0 = time.perf_counter()
+    pipe = build_random_pipeline(args.version, device, dtype, seed=args.seed)
+    print(f"built pipeline in {time.perf_counter() - t0:.2f}s")
+
+    step_callback = None
+    if args.progress:
+        def step_callback(i, n, lat):
+            print(f"Step {i + 1}/{n}", flush=True)
+
+    t0 = time.perf_counter()
+    out = generate(pipe, prompt=args.prompt, negative_prompt=args.negative_prompt,
+                   height=args.height, width=args.width, num_frames=args.num_frames,
+                   num_inference_steps=args.num_inference_steps,
+                   guidance_scale=args.guidance_scale, seed=args.seed,
+                   output_type=args.output_type, step_callback=step_callback)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"generation took {time.perf_counter() - t0:.2f}s, output {tuple(out.shape)}")
+    if not torch.isfinite(out).all():
+        raise SystemExit("generation produced non-finite values")
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    if args.output_type == "latent":
+        path = os.path.join(args.output_dir, "latents.pt")
+        torch.save(out.cpu(), path)
+        print(f"saved latents: {path}")
+        return 0
+    from candle_video_tpu.utils import video_io
+
+    video = out.cpu().numpy()
+    path = os.path.join(args.output_dir, "video_uint8.npy")
+    import numpy as np
+
+    np.save(path, video_io.to_uint8_frames(video))
+    print(f"saved frames [F,H,W,C] uint8: {path}")
+    if args.gif:
+        print(f"saved GIF: {video_io.save_gif(video, os.path.join(args.output_dir, 'video.gif'))}")
+    if args.mp4:
+        print(f"saved video: {video_io.save_mp4(video, os.path.join(args.output_dir, 'video.mp4'))}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,22 @@
+"""Sinusoidal timestep embedding (``candle_video_tpu/ops/embeddings.py``):
+f32 math, frequencies 1/10000^(i/half), output ordered [cos, sin]."""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def sinusoidal_timestep_embedding(timesteps, embedding_dim: int = 256):
+    """timesteps [N] -> [N, embedding_dim] f32 on the timesteps' device
+    (flip_sin_to_cos, no frequency shift, max period 10000)."""
+    half = embedding_dim // 2
+    exponent = -math.log(10000.0) * np.arange(half, dtype=np.float32) / np.float32(half)
+    inv_freq = torch.from_numpy(np.exp(exponent).astype(np.float32))
+    freqs = timesteps.float()[:, None] * inv_freq.to(timesteps.device)[None, :]
+    emb = torch.cat([torch.cos(freqs), torch.sin(freqs)], dim=-1)
+    if embedding_dim % 2 == 1:
+        emb = torch.nn.functional.pad(emb, (0, 1))
+    return emb

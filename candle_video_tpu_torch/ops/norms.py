@@ -1,0 +1,30 @@
+"""Normalisations with the JAX package's pinned f32 internals
+(``candle_video_tpu/ops/norms.py``): statistics in f32, cast back to the
+input dtype, then the affine weight in that dtype."""
+
+from __future__ import annotations
+
+import torch
+
+
+def rms_norm(x, weight=None, eps: float = 1e-6, dim: int = -1):
+    """RMSNorm over ``dim``. f32 internals, cast back, then affine."""
+    xf = x.float()
+    y = xf / torch.sqrt(xf.square().mean(dim=dim, keepdim=True) + eps)
+    y = y.to(x.dtype)
+    if weight is not None:
+        y = y * weight.to(x.dtype)
+    return y
+
+
+def layer_norm(x, weight=None, bias=None, eps: float = 1e-6):
+    """LayerNorm over the last axis (f32 internals, torch-compatible)."""
+    xf = x.float()
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    y = xc / torch.sqrt(xc.square().mean(dim=-1, keepdim=True) + eps)
+    y = y.to(x.dtype)
+    if weight is not None:
+        y = y * weight.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
