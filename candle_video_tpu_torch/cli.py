@@ -1,11 +1,15 @@
 """LTX-Video text-to-video CLI of the PyTorch port, random-init smoke mode.
 
 Builds a preset's full-width modules with random weights from ``--seed``
-(DiT and VAE in ``--dtype``, T5-XXL with int8 weights resident) on
-``--device`` and runs one generation.  Loading checkpoints is not ported yet.
+(DiT and VAE in ``--dtype``, or the DiT's block linears as weight-only int8
+or int4 with ``--dit-int8`` / ``--dit-int4``; T5-XXL with int8 weights
+resident, or loaded from ``--t5-gguf``) on ``--device`` and runs one
+generation.  Loading DiT and VAE checkpoints is not ported yet.
 
 Run: python -m candle_video_tpu_torch.cli --height 256 --width 384 \
          --num-frames 25 --output-type latent
+     python -m candle_video_tpu_torch.cli --version 0.9.8-13b-distilled \
+         --dit-int4 --height 256 --width 384 --num-frames 25 --output-type latent
 """
 
 from __future__ import annotations
@@ -36,6 +40,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", type=str, default="0.9.8-2b-distilled",
                    help="preset: 0.9.5 | 0.9.6-dev | 0.9.6-distilled | "
                         "0.9.8-2b-distilled | 0.9.8-13b-dev | 0.9.8-13b-distilled")
+    p.add_argument("--t5-gguf", type=str, default=None,
+                   help="GGUF file for the quantized T5-XXL encoder")
+    p.add_argument("--t5-keep-quantized", action="store_true",
+                   help="keep the GGUF T5 weights quantized on the card (Q4_K as packed "
+                        "nibbles on K4, the other types as int8 on K3); default "
+                        "dequantizes them once into --dtype")
+    p.add_argument("--dit-int8", action="store_true",
+                   help="DiT block linears as weight-only int8 (W8A16, groups of 128 "
+                        "along K)")
+    p.add_argument("--dit-int4", action="store_true",
+                   help="DiT block linears as weight-only int4 (W4A16, GGUF-Q4_K-form "
+                        "affine groups of 32, bf16 scale and min)")
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--width", type=int, default=768)
     p.add_argument("--num-frames", type=int, default=97)
@@ -54,17 +70,32 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+_DIT_INITS = {None: TF.init_random, "w8": TF.init_random_w8, "w4": TF.init_random_w4}
+_T5_INITS = {"int8": T5.init_random_int8, "w4": T5.init_random_w4}
+
+
 def build_random_pipeline(version: str, device, dtype=torch.bfloat16, seed: int = 0,
-                          max_sequence_length: int = 128) -> LtxPipeline:
+                          max_sequence_length: int = 128, dit_quant: str | None = None,
+                          t5_quant: str = "int8", t5_gguf: str | None = None,
+                          t5_keep_quantized: bool = False) -> LtxPipeline:
     """A preset's full-width pipeline with random weights made on ``device``
-    from ``seed``: DiT and VAE decoder in ``dtype``, T5-XXL int8-resident."""
+    from ``seed``: VAE decoder in ``dtype``; DiT in ``dtype``, or with its
+    block linears as weight-only int8 (``dit_quant="w8"``) or int4 (``"w4"``);
+    T5-XXL resident with int8 (``t5_quant="int8"``) or Q4_K-form 4-bit
+    (``"w4"``) weights, or loaded from the GGUF file ``t5_gguf``."""
+    if dit_quant not in _DIT_INITS or t5_quant not in _T5_INITS:
+        raise ValueError(f"dit_quant {dit_quant!r} not in {sorted(map(str, _DIT_INITS))} "
+                         f"or t5_quant {t5_quant!r} not in {sorted(_T5_INITS)}")
     cfg = get_config_by_version(version)
     device = torch.device(device)
     g = torch.Generator(device=device).manual_seed(seed)
-    transformer = TF.init_random(cfg.transformer, device, dtype, generator=g)
+    transformer = _DIT_INITS[dit_quant](cfg.transformer, device, dtype, generator=g)
     vae = V.init_random(cfg.vae, device, dtype, generator=g)
     t5_cfg = t5_xxl()
-    t5 = T5.init_random_int8(t5_cfg, device, dtype)
+    if t5_gguf:
+        t5 = T5.t5_from_gguf(t5_gguf, t5_cfg, device, dtype, keep_quantized=t5_keep_quantized)
+    else:
+        t5 = _T5_INITS[t5_quant](t5_cfg, device, dtype)
     return LtxPipeline(config=cfg, transformer=transformer, vae=vae, t5=t5,
                        t5_config=t5_cfg,
                        tokenizer=MockTokenizer(model_max_length=max_sequence_length))
@@ -80,13 +111,20 @@ def resolve_device(name: str) -> torch.device:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.dit_int8 and args.dit_int4:
+        raise SystemExit("--dit-int8 and --dit-int4 are mutually exclusive")
+    dit_quant = "w8" if args.dit_int8 else ("w4" if args.dit_int4 else None)
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     print(f"candle-video-tpu-torch | preset {args.version} | device {device}"
-          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    print("random-init models (smoke mode): checkpoint loading is not ported yet")
+          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+          + (f" | DiT weight-only {dit_quant}" if dit_quant else ""))
+    print("random-init DiT and VAE (smoke mode): their checkpoint loading is not ported yet"
+          + (f"; T5 from {args.t5_gguf}" if args.t5_gguf else ""))
     t0 = time.perf_counter()
-    pipe = build_random_pipeline(args.version, device, dtype, seed=args.seed)
+    pipe = build_random_pipeline(args.version, device, dtype, seed=args.seed,
+                                 dit_quant=dit_quant, t5_gguf=args.t5_gguf,
+                                 t5_keep_quantized=args.t5_keep_quantized)
     print(f"built pipeline in {time.perf_counter() - t0:.2f}s")
 
     step_callback = None

@@ -2,10 +2,12 @@
 
 24 pre-norm blocks, relative position bias from layer 0 shared by all,
 gated-GELU FFN, no 1/sqrt(d) attention scaling, f32 softmax and einsums,
-final RMSNorm.  Each linear is dense (``nn.Linear``) or the int8 carry
-``{w_q, s[, b]}``: weights resident as int8 with per-(group, column) f32
-scales, multiplied on K3 (``ops/kernels/int8_weight_matmul.py``), with the
-K-quant affine part as a rank-G correction ``groupsum(x) @ b``.
+final RMSNorm.  Each linear is dense (``nn.Linear``) or a weight-only carry
+(``ops/quant_linear.py``): the int8 carry ``{w_q, s[, b]}`` on K3, with the
+K-quant affine part as a rank-G correction ``groupsum(x) @ b``, or the
+true-4-bit Q4_K carry ``{w4, w4_scale, w4_min}`` on K4, whose min is fused
+in the dequant (no correction).  ``t5_from_gguf`` loads a GGUF file into
+either form.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import torch
 from torch import nn
 
 from ...ops.activations import gelu_tanh
-from ...ops.kernels.int8_weight_matmul import w8_matmul_auto
+from ...ops.kernels.int4_weight_matmul import pack_nibbles
+from ...ops.kernels.int8_weight_matmul import quantize_int8_blockwise
 from ...ops.norms import rms_norm
+from ...ops.quant_linear import Int4Linear, Int8Linear
 from .configs import T5Config
 
 
@@ -47,27 +51,6 @@ def position_bias(rel_bias, cfg: T5Config, seq_len: int):
                                        cfg.relative_attention_max_distance)
     bias = rel_bias[torch.from_numpy(buckets).to(rel_bias.device)]  # [S, S, H]
     return bias.permute(2, 0, 1)[None].float()
-
-
-class Int8Linear(nn.Module):
-    """Weight-only int8 linear: ``w_q`` int8 [K, N], ``s`` f32 [K/g, N], and
-    optionally the affine part ``b`` [K/g, N] of a K-quant payload."""
-
-    def __init__(self, w_q, s, b=None):
-        super().__init__()
-        self.register_buffer("w_q", w_q)
-        self.register_buffer("s", s)
-        self.register_buffer("b", b)
-
-    def forward(self, x):
-        lead, k = x.shape[:-1], x.shape[-1]
-        gs = k // self.s.shape[0]
-        x2 = x.reshape(-1, k).contiguous()
-        y = w8_matmul_auto(x2, self.w_q, self.s, qblock=gs, out_dtype=x.dtype)
-        if self.b is not None:
-            gsum = x2.float().reshape(x2.shape[0], k // gs, gs).sum(-1)
-            y = y + (gsum @ self.b.float()).to(y.dtype)
-        return y.reshape(*lead, y.shape[-1])
 
 
 class T5Block(nn.Module):
@@ -128,26 +111,25 @@ def dense_linear(weight_in_out):
     return lin
 
 
+def _fill_index(seed: int, count: int, device):
+    """``(i * 2654435761 + seed) mod 2^32`` for i < count, as int64 (the JAX
+    bench's deterministic uint32 fill)."""
+    i = torch.arange(count, device=device, dtype=torch.int64)
+    return (i * 2654435761 + seed) & 0xFFFFFFFF
+
+
 def _int8_fill(seed: int, k: int, n: int, device):
     """Deterministic int8 [k, n] payload in the style of the JAX bench's T5
     fill: ``int8((i * 2654435761 + seed) mod 2^32 mod 255) - 64`` with int8
     wrap-around."""
-    i = torch.arange(k * n, device=device, dtype=torch.int64)
-    v = ((i * 2654435761 + seed) & 0xFFFFFFFF) % 255
+    v = _fill_index(seed, k * n, device) % 255
     return ((v + 64) % 256 - 128).to(torch.int8).reshape(k, n)
 
 
-@torch.no_grad()
-def init_random_int8(cfg: T5Config, device, dtype=torch.bfloat16,
-                     scale: float = 1e-4) -> T5Encoder:
-    """Full-size T5 with every linear in the int8 carry (groups of 32),
-    filled deterministically on the device; norms 1, relative bias 0."""
+def _random_t5(cfg: T5Config, device, dtype, qlin) -> T5Encoder:
+    """Full-size T5 whose linears come from ``qlin(seed, k, n)``; norms 1,
+    relative bias 0, a deterministic embedding."""
     d, ff = cfg.d_model, cfg.d_ff
-
-    def qlin(seed, k, n):
-        s = torch.full((k // 32, n), scale, dtype=torch.float32, device=device)
-        return Int8Linear(_int8_fill(seed, k, n, device), s)
-
     blocks = []
     for i in range(cfg.num_layers):
         shapes = {"q": (d, d), "k": (d, d), "v": (d, d), "o": (d, d),
@@ -159,3 +141,105 @@ def init_random_int8(cfg: T5Config, device, dtype=torch.bfloat16,
     rel = torch.zeros(cfg.relative_attention_num_buckets, cfg.num_heads,
                       dtype=torch.float32, device=device)
     return T5Encoder(cfg, emb, blocks, rel, torch.ones(d, dtype=dtype, device=device)).eval()
+
+
+@torch.no_grad()
+def init_random_int8(cfg: T5Config, device, dtype=torch.bfloat16,
+                     scale: float = 1e-4) -> T5Encoder:
+    """Full-size T5 with every linear in the int8 carry (groups of 32),
+    filled deterministically on the device."""
+    def qlin(seed, k, n):
+        s = torch.full((k // 32, n), scale, dtype=torch.float32, device=device)
+        return Int8Linear(_int8_fill(seed, k, n, device), s)
+
+    return _random_t5(cfg, device, dtype, qlin)
+
+
+@torch.no_grad()
+def init_random_w4(cfg: T5Config, device, dtype=torch.bfloat16, scale: float = 1e-4,
+                   minimum: float = -7.5e-4) -> T5Encoder:
+    """Full-size T5 with every linear in the Q4_K-form carry: packed bytes
+    ``(i * 2654435761 + seed) mod 256`` (uniform nibbles), f32 scale and min
+    per group of 32 (the dequant is centred at 0), made on the device."""
+    def qlin(seed, k, n):
+        w4 = (_fill_index(seed, (k // 2) * n, device) & 0xFF).to(torch.uint8)
+        s = torch.full((k // 32, n), scale, dtype=torch.float32, device=device)
+        return Int4Linear(w4.reshape(k // 2, n), s, torch.full_like(s, minimum))
+
+    return _random_t5(cfg, device, dtype, qlin)
+
+
+def _copy(arr):
+    """A tensor that owns a C-ordered copy of ``arr`` (GGUF arrays may view
+    the file's memory map, which is closed after loading)."""
+    return torch.from_numpy(np.array(arr, order="C"))
+
+
+def _gguf_linear(f, name: str, device, dtype, keep_quantized: bool):
+    """One GGUF linear: dense ``nn.Linear``, or its payload carried as is."""
+    from candle_video_tpu.quant import dequant_np as DQ
+
+    def t(arr, to=None):
+        return _copy(arr).to(device=device, dtype=to)
+
+    if not keep_quantized:
+        return dense_linear(t(f.tensor(name).T, dtype))
+    info = f.tensors[name]
+    out_dim, in_dim = info.shape
+
+    def kmajor(flat, group):
+        """[out*in] flat fields -> [in, out] / [in//group, out]."""
+        return np.ascontiguousarray(flat.reshape(out_dim, in_dim // group).T)
+
+    if info.ggml_type == DQ.GGML_Q8_0:
+        qs, d = DQ.extract_q8_0_fields(f.raw_tensor(name), info.n_elements)
+        return Int8Linear(t(kmajor(qs, 1)), t(kmajor(d, DQ.QK8_0), torch.float32))
+    if info.ggml_type == DQ.GGML_Q4_K:
+        q, s, b = DQ.extract_q4_k_fields(f.raw_tensor(name), info.n_elements)
+        return Int4Linear(t(pack_nibbles(kmajor(q, 1))), t(kmajor(s, 32), torch.float32),
+                          t(kmajor(b, 32), torch.float32))
+    if info.ggml_type == DQ.GGML_Q5_K:
+        q, s, b = DQ.extract_q5_k_fields(f.raw_tensor(name), info.n_elements)
+        return Int8Linear(t(kmajor(q, 1)), t(kmajor(s, 32)), t(kmajor(b, 32)))
+    if info.ggml_type == DQ.GGML_Q6_K:
+        q, s = DQ.extract_q6_k_fields(f.raw_tensor(name), info.n_elements)
+        return Int8Linear(t(kmajor(q, 1)), t(kmajor(s, 16)))
+    w_q, s = quantize_int8_blockwise(f.tensor(name).reshape(out_dim, in_dim).T)
+    return Int8Linear(t(w_q), t(s))
+
+
+@torch.no_grad()
+def t5_from_gguf(path: str, cfg: T5Config, device="cpu", dtype=torch.bfloat16,
+                 keep_quantized: bool = False) -> T5Encoder:
+    """T5 encoder from a GGUF file with ``enc.blk.N.*`` names (the JAX
+    ``params_from_gguf``).  ``keep_quantized=False`` dequantizes each linear
+    once into a dense ``dtype`` ``nn.Linear``.  ``keep_quantized=True``
+    carries each payload as it is stored: Q8_0 as int8 with its scales, Q4_K
+    as packed nibbles with f32 (s, m), Q5_K as int8 codes with (s, b) in
+    groups of 32, Q6_K as int8 with scales in groups of 16; a float tensor
+    is quantized to int8 in groups of 32.  Layers may mix payload types.
+    The GGUF reader is the JAX package's numpy-only one, imported here so
+    that the encoder's other paths do not load it."""
+    from candle_video_tpu.quant.gguf import GGUFFile
+
+    f = GGUFFile(path)
+    try:
+        def norm(name):
+            return _copy(f.tensor(name)).to(device=device, dtype=dtype)
+
+        blocks = []
+        for i in range(cfg.num_layers):
+            pre = f"enc.blk.{i}"
+            names = {"q": "attn_q", "k": "attn_k", "v": "attn_v", "o": "attn_o",
+                     "wi_0": "ffn_gate", "wi_1": "ffn_up", "wo": "ffn_down"}
+            lins = {k: _gguf_linear(f, f"{pre}.{v}.weight", device, dtype, keep_quantized)
+                    for k, v in names.items()}
+            blocks.append(T5Block(cfg, lins, norm(f"{pre}.attn_norm.weight"),
+                                  norm(f"{pre}.ffn_norm.weight")))
+        # GGUF stores the relative bias as [num_buckets, num_heads]
+        rel = _copy(f.tensor("enc.blk.0.attn_rel_b.weight")).to(device=device,
+                                                                 dtype=torch.float32)
+        return T5Encoder(cfg, norm("token_embd.weight"), blocks, rel,
+                         norm("enc.output_norm.weight")).eval()
+    finally:
+        f.close()

@@ -7,7 +7,12 @@ cross-attention, tanh-GELU FF) → final scale/shift modulation → proj_out.
 The JAX package stacks the blocks as ``[L, ...]`` arrays under ``lax.scan``;
 here they are a ``ModuleList`` walked by a Python loop.  Linear weights are
 ``nn.Linear`` (``[out, in]``): ``convert.py`` transposes the JAX ``[in, out]``
-arrays.  BF16 weights only.
+arrays.
+
+Weight-only tiers (``quantize_transformer_w8`` / ``_w4``, ``init_random_w8``
+/ ``_w4``): the block linears (attn1/attn2 QKVO and FF) become
+``ops/quant_linear.py`` modules; everything else stays in the model dtype.
+``forward`` is the same for every tier.
 """
 
 from __future__ import annotations
@@ -21,7 +26,10 @@ from torch import nn
 from ...ops.activations import gelu_tanh, silu
 from ...ops.attention import attention
 from ...ops.embeddings import sinusoidal_timestep_embedding
+from ...ops.kernels.int4_weight_matmul import quantize_int4_blockwise
+from ...ops.kernels.int8_weight_matmul import quantize_int8_blockwise
 from ...ops.norms import layer_norm, rms_norm
+from ...ops.quant_linear import Int4Linear, Int8Linear
 from .configs import LtxTransformerConfig
 
 
@@ -159,13 +167,10 @@ def empty_transformer(cfg: LtxTransformerConfig, device, dtype=torch.bfloat16):
     return model.to_empty(device=device)
 
 
-@torch.no_grad()
-def init_random(cfg: LtxTransformerConfig, device, dtype=torch.bfloat16,
-                generator: torch.Generator | None = None):
-    """Random-init DiT with the JAX init's std values: linears N(0, 0.02),
-    biases 0, QK-norm weights 1, modulation tables N(0, 1/sqrt(inner))."""
-    model = empty_transformer(cfg, device, dtype)
-    table_std = 1.0 / math.sqrt(cfg.inner_dim)
+def _init_dense_(model, generator) -> None:
+    """The JAX init's std values: linears N(0, 0.02), biases 0, QK-norm
+    weights 1, modulation tables N(0, 1/sqrt(inner))."""
+    table_std = 1.0 / math.sqrt(model.cfg.inner_dim)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "bias":
@@ -176,7 +181,121 @@ def init_random(cfg: LtxTransformerConfig, device, dtype=torch.bfloat16,
             p.normal_(0.0, table_std, generator=generator)
         else:
             p.normal_(0.0, 0.02, generator=generator)
+
+
+@torch.no_grad()
+def init_random(cfg: LtxTransformerConfig, device, dtype=torch.bfloat16,
+                generator: torch.Generator | None = None):
+    """Random-init DiT (``_init_dense_``)."""
+    model = empty_transformer(cfg, device, dtype)
+    _init_dense_(model, generator)
     return model.eval()
+
+
+# (block attribute, linear) pairs the weight-only tiers quantize
+QUANTIZED_LINEARS = tuple((attn, name) for attn in ("attn1", "attn2")
+                          for name in ("to_q", "to_k", "to_v", "to_out")) + \
+    (("ff", "net_0_proj"), ("ff", "net_2"))
+
+
+def quantized_slots(model):
+    """(parent module, attribute) of every block linear in
+    ``QUANTIZED_LINEARS``."""
+    for blk in model.blocks:
+        for group, name in QUANTIZED_LINEARS:
+            yield getattr(blk, group), name
+
+
+def _bias_of(lin):
+    return None if lin.bias is None else lin.bias.detach()
+
+
+@torch.no_grad()
+def quantize_transformer_w8(model, qblock: int = 128):
+    """In place: the block linears to weight-only int8 (W8A16, symmetric
+    per-(group of ``qblock`` along K, column) f32 scales), one linear at a
+    time so the f32 temporaries stay one matrix big.  The payloads are the
+    JAX ``quantize_transformer_params_w8``'s bit for bit."""
+    for parent, name in quantized_slots(model):
+        lin = getattr(parent, name)
+        w_q, s = quantize_int8_blockwise(lin.weight.detach().t().float().cpu().numpy(),
+                                         qblock)
+        dev = lin.weight.device
+        setattr(parent, name, Int8Linear(torch.from_numpy(w_q).to(dev),
+                                         torch.from_numpy(s).to(dev), bias=_bias_of(lin)))
+    return model
+
+
+@torch.no_grad()
+def quantize_transformer_w4(model, qblock: int = 32, scale_dtype=torch.bfloat16):
+    """In place: the block linears to weight-only int4 (W4A16, packed
+    nibbles with affine scale and min per group of ``qblock``, in
+    ``scale_dtype``), one linear at a time.  The payloads are the JAX
+    ``quantize_transformer_params_w4``'s bit for bit; the large-M route
+    dequantizes in bf16, as the JAX DiT does."""
+    for parent, name in quantized_slots(model):
+        lin = getattr(parent, name)
+        packed, s, m = quantize_int4_blockwise(
+            lin.weight.detach().t().float().cpu().numpy(), qblock, scale_dtype)
+        dev = lin.weight.device
+        setattr(parent, name, Int4Linear(packed.to(dev), s.to(dev), m.to(dev),
+                                         bias=_bias_of(lin), compute_dtype=torch.bfloat16))
+    return model
+
+
+def _init_random_quantized(cfg, device, dtype, generator, make_linear):
+    """Random DiT whose block linears come from ``make_linear(d_in, d_out,
+    bias)``; the dense block weights are never allocated."""
+    with torch.device("meta"):
+        model = LtxTransformer3D(cfg, dtype)
+    slots = []
+    for parent, name in quantized_slots(model):
+        lin = getattr(parent, name)
+        slots.append((parent, name, lin.in_features, lin.out_features, lin.bias is not None))
+        setattr(parent, name, nn.Identity())
+    model = model.to_empty(device=device)
+    _init_dense_(model, generator)
+    for parent, name, d_in, d_out, has_bias in slots:
+        bias = torch.zeros(d_out, dtype=dtype, device=device) if has_bias else None
+        setattr(parent, name, make_linear(d_in, d_out, bias))
+    return model.eval()
+
+
+@torch.no_grad()
+def init_random_w4(cfg: LtxTransformerConfig, device, dtype=torch.bfloat16,
+                   generator: torch.Generator | None = None):
+    """Random DiT with the block linears made directly as int4 on the
+    device, groups of 32: uniform bytes (so uniform nibbles, std 4.61, mean
+    7.5), bf16 scale ``0.02 / 4.61`` and min ``-7.5 * scale`` (weights of
+    std 0.02 centred at 0), as the JAX ``init_params_w4``.  The bf16 block
+    tree never exists."""
+    s_val = 0.02 / 4.61
+    m_val = -7.5 * s_val
+
+    def make(d_in, d_out, bias):
+        w4 = torch.randint(0, 256, (d_in // 2, d_out), generator=generator, device=device,
+                           dtype=torch.uint8)
+        s = torch.full((d_in // 32, d_out), s_val, dtype=torch.bfloat16, device=device)
+        return Int4Linear(w4, s, torch.full_like(s, m_val), bias=bias,
+                          compute_dtype=torch.bfloat16)
+
+    return _init_random_quantized(cfg, device, dtype, generator, make)
+
+
+@torch.no_grad()
+def init_random_w8(cfg: LtxTransformerConfig, device, dtype=torch.bfloat16,
+                   generator: torch.Generator | None = None):
+    """Random DiT with the block linears made directly as int8 on the
+    device, groups of 128: uniform bytes (std 73.9) with f32 scale
+    ``0.02 / 73.9``, as the JAX ``init_params_w8``."""
+    def make(d_in, d_out, bias):
+        w_q = torch.randint(-128, 128, (d_in, d_out), generator=generator, device=device,
+                            dtype=torch.int8)
+        s = torch.full((d_in // 128, d_out), 0.02 / 73.9, dtype=torch.float32,
+                       device=device)
+        return Int8Linear(w_q, s, bias=bias)
+
+    return _init_random_quantized(cfg, device, dtype, generator, make)
 
 
 def build_skip_layer_mask(num_layers: int, batch: int, skip_blocks) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels and bind them through ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library with
-a plain C interface, at first use, into ``candle_video_tpu_torch/_build/``
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started at
+once, and the objects are linked into one shared library with a plain C
+interface, at first use, into ``candle_video_tpu_torch/_build/``
 (gitignored).  The library path is keyed on a hash of the sources and the
 flags, so an edited kernel rebuilds and an unchanged one loads from disk.
 
@@ -25,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -43,6 +44,9 @@ _SIGNATURES = {
     # x, w_q, s, bias, workspace, out, M, K, N, qblock, splits, k_per_split,
     # stream
     "cvt_w8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w_p, s, m, bias, workspace, out, M, K, N, qblock, scale_bf16, splits,
+    # packed_rows_per_split, stream
+    "cvt_w4_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -79,11 +83,25 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, pid = _nvcc(), os.getpid()
+    jobs = []
+    for src in _sources():
+        obj = out.parent / f"{src.stem}.{pid}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out.with_suffix(f".{pid}.tmp")
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)
     return out
 

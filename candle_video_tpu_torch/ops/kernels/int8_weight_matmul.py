@@ -14,6 +14,7 @@ XLA); the T5 encode (M = 128) always takes the kernel.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
@@ -23,6 +24,32 @@ QBLOCK = 32
 W8_XLA_MIN_M = 1024
 _BM, _BN, _BK = 128, 64, 32  # the kernel's tile (csrc/int8_weight_matmul.cu)
 _CTAS_PER_SM = 4  # split-K target: enough CTAs to keep every SM's loads in flight
+
+
+def quantize_int8_blockwise(w, qblock: int = QBLOCK):
+    """[.., K, N] float -> (w_q int8 [.., K, N], s f32 [.., K//qblock, N]):
+    symmetric per-(group of ``qblock`` along K, column) quantization, the
+    numpy producer of the JAX package, with C-contiguous payloads whatever
+    the layout of ``w``."""
+    w = np.ascontiguousarray(w, np.float32)
+    k, n = w.shape[-2], w.shape[-1]
+    if k % qblock:
+        raise ValueError(f"K={k} must be a multiple of qblock={qblock}")
+    g = w.reshape(*w.shape[:-2], k // qblock, qblock, n)
+    s = np.maximum(np.abs(g).max(axis=-2), 1e-12) / 127.0
+    q = np.clip(np.round(g / s[..., None, :]), -127, 127).astype(np.int8)
+    return q.reshape(w.shape), s.astype(np.float32)
+
+
+def dot_bf16(x, w_bf16, out_dtype):
+    """x·w over bf16 operands with f32 accumulation, the result in
+    ``out_dtype``: XLA's ``dot(bf16, bf16, preferred_element_type=f32)``
+    followed by a cast.  A bf16 result is one bf16 matmul; any other takes
+    the f32 product of the bf16 values, so it is not rounded to bf16."""
+    xb = x.to(torch.bfloat16)
+    if out_dtype == torch.bfloat16:
+        return torch.matmul(xb, w_bf16)
+    return torch.matmul(xb.float(), w_bf16.float()).to(out_dtype)
 
 
 def dequantize(w_q, s_w, qblock: int = QBLOCK):
@@ -104,8 +131,7 @@ def w8_matmul_auto(x, w_q, s_w, bias=None, qblock: int = QBLOCK, out_dtype=None)
     dequant plus ``torch.matmul`` from ``W8_XLA_MIN_M`` rows on."""
     if x.shape[0] >= W8_XLA_MIN_M:
         out_dtype = out_dtype or x.dtype
-        y = torch.matmul(x.to(torch.bfloat16), dequantize(w_q, s_w, qblock))
-        y = y.to(out_dtype)
+        y = dot_bf16(x, dequantize(w_q, s_w, qblock), out_dtype)
         return y if bias is None else y + bias.to(out_dtype)
     return w8_matmul(x, w_q, s_w, bias, qblock, out_dtype)
 

@@ -131,7 +131,7 @@ def test_kernel_library_is_keyed_on_sources():
     path = _build.library_path()
     assert path.parent.parent == _build.BUILD_DIR
     assert {p.name for p in _build._sources()} == {
-        "flash_attention_packed.cu", "int8_weight_matmul.cu"}
+        "flash_attention_packed.cu", "int8_weight_matmul.cu", "int4_weight_matmul.cu"}
 
 
 def test_rope_tables_feed_both_sides(rng):

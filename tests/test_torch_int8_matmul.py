@@ -58,6 +58,19 @@ def test_k3_auto_takes_transient_dequant_at_large_m(rng):
     assert _rel(got.numpy(), want) <= RTOL
 
 
+@pytest.mark.parametrize("shape,qblock", [((256, 48), 32), ((2, 256, 40), 128),
+                                          ((64, 24), 16)])
+def test_quantize_int8_blockwise_matches_jax_bit_for_bit(rng, shape, qblock):
+    w = rng.normal(size=shape).astype(np.float32) * 0.05
+    got_q, got_s = K3.quantize_int8_blockwise(w, qblock)
+    want_q, want_s = quantize_int8_blockwise(w, qblock)
+    assert got_q.dtype == np.int8 and got_s.dtype == np.float32
+    np.testing.assert_array_equal(got_q, want_q)
+    np.testing.assert_array_equal(got_s, want_s)
+    with pytest.raises(ValueError, match="multiple of qblock"):
+        K3.quantize_int8_blockwise(w[..., :-8, :], 128)
+
+
 def test_dequantize_rounds_like_the_kernel(rng):
     w_q, s = quantize_int8_blockwise(rng.normal(size=(64, 16)), 32)
     got = K3.dequantize(torch.from_numpy(w_q), torch.from_numpy(s), 32)

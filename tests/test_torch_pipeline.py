@@ -1,7 +1,9 @@
 """The PyTorch port's text-to-video slice against the JAX package's
 ``generate`` on the CPU, in f32: tiny DiT (2 layers, 4 heads x 64), tiny
 timestep-conditioned VAE, tiny int8 T5 with the MockTokenizer, the same
-PCG32 latents and the same decode noise.
+PCG32 latents and the same decode noise.  A 13B-shaped variant (2 heads x
+128, W4A16 DiT block linears, the Q4_K-form w4 T5, a permanently skipped
+block) runs both packages' int4 routes.
 
 Tolerances: final latents MSE < 1e-3, video PSNR > 35 dB."""
 
@@ -24,11 +26,14 @@ from candle_video_tpu.models.ltx_video import vae as JV
 from candle_video_tpu.models.ltx_video.configs import LtxFullConfig, LtxInferenceConfig
 from candle_video_tpu.models.ltx_video.scheduler import FlowMatchEulerSchedulerConfig
 from candle_video_tpu.models.ltx_video.vae_init import init_vae_params
+from candle_video_tpu.ops.pallas.int4_weight_matmul import quantize_int4_blockwise
 from candle_video_tpu.ops.pallas.int8_weight_matmul import quantize_int8_blockwise
 from candle_video_tpu.utils.tokenizer import MockTokenizer
 from candle_video_tpu_torch.models.ltx_video import configs as PC
 from candle_video_tpu_torch.models.ltx_video import convert as PCV
+from candle_video_tpu_torch import cli as PCLI
 from candle_video_tpu_torch.models.ltx_video import pipeline as PP
+from candle_video_tpu_torch.ops.quant_linear import Int4Linear
 
 torch.set_num_threads(2)
 
@@ -54,22 +59,33 @@ DISTILLED = dict(guidance_scale=1.0, num_inference_steps=3, stg_scale=0.0,
                  decode_timestep=(0.05,), decode_noise_scale=(0.025,))
 GUIDED = dict(guidance_scale=2.0, num_inference_steps=3, stg_scale=1.0,
               rescaling_scale=0.7, skip_block_list=(1,))
+# the 13B shape at small width: head dim 128, and a permanent skip without
+# STG, as the 13B-distilled preset skips block 42
+TF_CFG_13B = dict(TF_CFG, num_attention_heads=2, attention_head_dim=128)
+DISTILLED_13B = dict(DISTILLED, skip_block_list=(1,))
 
 
-def _configs(mod_cfg, inference):
+def _configs(mod_cfg, inference, tf_cfg=TF_CFG):
     return mod_cfg.LtxFullConfig(
         inference=mod_cfg.LtxInferenceConfig(**inference),
-        transformer=mod_cfg.LtxTransformerConfig(**TF_CFG),
+        transformer=mod_cfg.LtxTransformerConfig(**tf_cfg),
         vae=mod_cfg.LtxVaeConfig(**VAE_CFG),
         scheduler=mod_cfg.FlowMatchEulerSchedulerConfig(**SCHED),
     )
 
 
-def _t5_int8_tree(rng):
+def _t5_int8_tree(rng, w4=False):
+    """Tiny T5 with int8 ``{w_q, s}`` linears, or the Q4_K-form ``{w4,
+    w4_scale, w4_min}`` carry with ``w4``."""
     d, ff = T5_CFG["d_model"], T5_CFG["d_ff"]
 
     def lin(k, n):
-        w_q, s = quantize_int8_blockwise(rng.normal(size=(k, n)) * 0.08, 32)
+        w = rng.normal(size=(k, n)) * 0.08
+        if w4:
+            p, sc, mn = quantize_int4_blockwise(w, 32)
+            return {"w4": jnp.asarray(p), "w4_scale": jnp.asarray(sc),
+                    "w4_min": jnp.asarray(mn)}
+        w_q, s = quantize_int8_blockwise(w, 32)
         return {"w_q": jnp.asarray(w_q), "s": jnp.asarray(s)}
 
     blocks = []
@@ -96,18 +112,26 @@ def jax_trees():
     return tparams, vparams, _t5_int8_tree(rng)
 
 
-def _pipelines(jax_trees, inference):
+@pytest.fixture(scope="module")
+def jax_trees_13b_w4(jax_trees):
+    tparams = JTF.init_params(jax.random.PRNGKey(2), JTF.LtxTransformerConfig(**TF_CFG_13B),
+                              dtype=jnp.float32)
+    qparams = JTF.quantize_transformer_params_w4(tparams, qblock=32, scale_dtype="bfloat16")
+    return qparams, jax_trees[1], _t5_int8_tree(np.random.default_rng(3), w4=True)
+
+
+def _pipelines(jax_trees, inference, tf_cfg=TF_CFG):
     tparams, vparams, t5params = jax_trees
     jcfg = LtxFullConfig(
         inference=LtxInferenceConfig(**inference),
-        transformer=JTF.LtxTransformerConfig(**TF_CFG),
+        transformer=JTF.LtxTransformerConfig(**tf_cfg),
         vae=JV.LtxVaeConfig(**VAE_CFG),
         scheduler=FlowMatchEulerSchedulerConfig(**SCHED))
     tok = MockTokenizer(vocab_size=64, model_max_length=16)
     jpipe = JP.LtxPipeline(config=jcfg, transformer_params=tparams, vae_params=vparams,
                            t5_params=t5params, t5_config=JT5.T5Config(**T5_CFG),
                            tokenizer=tok)
-    pcfg = _configs(PC, inference)
+    pcfg = _configs(PC, inference, tf_cfg)
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     ppipe = PP.LtxPipeline(
         config=pcfg,
@@ -120,7 +144,17 @@ def _pipelines(jax_trees, inference):
 
 @pytest.mark.parametrize("inference", [DISTILLED, GUIDED], ids=["distilled", "cfg_stg"])
 def test_generate_matches_jax(jax_trees, inference):
-    jpipe, ppipe = _pipelines(jax_trees, inference)
+    _check_generate(*_pipelines(jax_trees, inference))
+
+
+def test_generate_13b_shaped_w4_matches_jax(jax_trees_13b_w4):
+    jpipe, ppipe = _pipelines(jax_trees_13b_w4, DISTILLED_13B, TF_CFG_13B)
+    assert isinstance(ppipe.transformer.blocks[0].attn2.to_k, Int4Linear)
+    assert isinstance(ppipe.t5.blocks[1].wo, Int4Linear)
+    _check_generate(jpipe, ppipe)
+
+
+def _check_generate(jpipe, ppipe):
     kw = dict(prompt="a cat walking on grass", height=64, width=96, num_frames=9,
               seed=5, max_sequence_length=16)
     lat_j = np.asarray(JP.generate(jpipe, output_type="latent", **kw))
@@ -168,9 +202,17 @@ def test_check_inputs_rejects():
         PP.check_inputs(64, 96, None, torch.zeros(1, 4, 8))
 
 
-def test_port_generate_never_imports_jax():
+def test_cli_rejects_both_dit_tiers():
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        PCLI.main(["--dit-int8", "--dit-int4", "--device", "cpu"])
+    with pytest.raises(ValueError, match="dit_quant"):
+        PCLI.build_random_pipeline("0.9.8-13b-distilled", "cpu", dit_quant="w2")
+
+
+def test_port_generate_never_imports_jax(tmp_path):
     script = textwrap.dedent("""
         import sys
+        import numpy as np
         import torch
         torch.set_num_threads(2)
         from candle_video_tpu.utils.tokenizer import MockTokenizer
@@ -196,11 +238,45 @@ def test_port_generate_never_imports_jax():
         out = P.generate(pipe, prompt="x", height=64, width=64, num_frames=5,
                          max_sequence_length=16)
         assert out.shape == (1, 3, 5, 16, 16) and torch.isfinite(out).all()
+
+        # the W4 tiers: int4 DiT block linears, T5 from a Q4_K / Q8_0 GGUF file
+        from candle_video_tpu.quant import dequant_np as DQ
+        from candle_video_tpu.quant.gguf import write_gguf
+        rng = np.random.default_rng(0)
+        d, ff = t5cfg.d_model, t5cfg.d_ff
+        tensors = {}
+        def add(name, shape, tid=None):
+            x = rng.normal(size=shape).astype(np.float32) * 0.1
+            tensors[name] = ((DQ.GGML_F32, shape, x.view(np.uint8).reshape(-1)) if tid is None
+                             else (tid, shape, {DQ.GGML_Q4_K: DQ.quantize_q4_k,
+                                                DQ.GGML_Q8_0: DQ.quantize_q8_0}[tid](x)))
+        add("token_embd.weight", (t5cfg.vocab_size, d), DQ.GGML_Q8_0)
+        add("enc.output_norm.weight", (d,))
+        for i in range(t5cfg.num_layers):
+            for nm, shape in [("attn_q", (d, d)), ("attn_k", (d, d)), ("attn_v", (d, d)),
+                              ("attn_o", (d, d)), ("ffn_gate", (ff, d)), ("ffn_up", (ff, d)),
+                              ("ffn_down", (d, ff))]:
+                add(f"enc.blk.{i}.{nm}.weight", shape,
+                    DQ.GGML_Q8_0 if nm == "ffn_down" else DQ.GGML_Q4_K)
+            add(f"enc.blk.{i}.attn_norm.weight", (d,))
+            add(f"enc.blk.{i}.ffn_norm.weight", (d,))
+        add("enc.blk.0.attn_rel_b.weight", (32, t5cfg.num_heads))
+        path = sys.argv[1] + "/t5.gguf"
+        write_gguf(path, tensors, {"general.architecture": "t5"})
+        pipe = P.LtxPipeline(cfg, TF.init_random_w4(cfg.transformer, "cpu", torch.float32),
+                             V.init_random(cfg.vae, "cpu", torch.float32),
+                             T5.t5_from_gguf(path, t5cfg, "cpu", torch.float32,
+                                             keep_quantized=True),
+                             t5cfg, MockTokenizer(vocab_size=64, model_max_length=16))
+        out = P.generate(pipe, prompt="x", height=64, width=64, num_frames=5,
+                         max_sequence_length=16)
+        assert out.shape == (1, 3, 5, 16, 16) and torch.isfinite(out).all()
+        assert type(pipe.t5.blocks[0].q).__name__ == "Int4Linear"
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("NO_JAX_OK")
     """) % (TF_CFG, VAE_CFG, T5_CFG)
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+    res = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "NO_JAX_OK" in res.stdout
