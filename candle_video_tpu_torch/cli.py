@@ -21,13 +21,12 @@ import time
 
 import torch
 
-from candle_video_tpu.utils.tokenizer import MockTokenizer
-
 from .models.ltx_video import t5 as T5
 from .models.ltx_video import transformer as TF
 from .models.ltx_video import vae as V
 from .models.ltx_video.configs import get_config_by_version, t5_xxl
 from .models.ltx_video.pipeline import LtxPipeline, generate
+from .utils.tokenizer import MockTokenizer
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,6 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output-dir", type=str, default="output")
     p.add_argument("--gif", action="store_true", help="also write video.gif (needs imageio)")
     p.add_argument("--mp4", action="store_true", help="also write video.mp4 (needs imageio)")
+    p.add_argument("--vae-stream-chunks", type=int, default=0,
+                   help="decode with the exact streamed tail in N temporal chunks "
+                        "(overlap-save conv caches, zero recompute); default: the mode "
+                        "select_decode_mode picks from the free card memory")
     p.add_argument("--progress", action="store_true", help="print a line per denoise step")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float32"],
                    help="model dtype; the CUDA kernels take bfloat16")
@@ -137,7 +140,8 @@ def main(argv=None) -> int:
                    height=args.height, width=args.width, num_frames=args.num_frames,
                    num_inference_steps=args.num_inference_steps,
                    guidance_scale=args.guidance_scale, seed=args.seed,
-                   output_type=args.output_type, step_callback=step_callback)
+                   output_type=args.output_type, step_callback=step_callback,
+                   vae_tail_stream_chunks=args.vae_stream_chunks)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     print(f"generation took {time.perf_counter() - t0:.2f}s, output {tuple(out.shape)}")
@@ -150,7 +154,7 @@ def main(argv=None) -> int:
         torch.save(out.cpu(), path)
         print(f"saved latents: {path}")
         return 0
-    from candle_video_tpu.utils import video_io
+    from .utils import video_io
 
     video = out.cpu().numpy()
     path = os.path.join(args.output_dir, "video_uint8.npy")

@@ -20,13 +20,32 @@
 //   owns 16 rows, keeps its rotated q as A fragments, its 16 x 64 score tile
 //   and its 16 x D output accumulator in registers, and runs the online
 //   (running-max) softmax there: no [rows, K] score tile is ever stored, so
-//   the TPU kernel's Cauchy-Schwarz fixed shift has no job here.  p is
+//   K1 needs no Cauchy-Schwarz fixed shift (K2 below keeps it).  p is
 //   rounded to bf16 and re-used directly as the A operand of P*V, as on the
 //   TPU.  K/V stream through shared memory in 64-key tiles, double-buffered
 //   with cp.async so the next tile's loads overlap this tile's math;
 //   fragments come from shared memory by ldmatrix (V transposed on load),
 //   with padded rows so those loads are free of bank conflicts.  Not yet:
 //   wgmma, TMA, warp specialisation.
+//
+// K2, the long-sequence kernel, is the same template with FIXED = true.
+// Replaces: candle_video_tpu/ops/pallas/flash_attention_packed.py:392,
+//   _packed_long -> _kernel_long (pallas_call at :517), which the TPU takes
+//   once the padded key length exceeds 8192 (every DiT self-attention of a
+//   512x768 clip of 169 frames or more).  Same contract as K1 plus f32
+//   bounds [B, G] (G = H*D/128 lane groups): the Cauchy-Schwarz bound
+//   scale * max|q_g| * max|k_g|, clipped at 40, plus the key bias's global
+//   max, computed by the wrapper.  The bound is the softmax shift, FIXED for
+//   every key tile of a row, so numerator and denominator are plain sums over
+//   key tiles: no running max, no alpha, no rescale of the output registers,
+//   one divide by l at the end.  A row whose every score lies ~87 nats under
+//   the bound underflows to l = 0, exactly as on the TPU.
+// What bounds it: arithmetic, as K1.  At the 257-frame path shape (S = K =
+//   12672, H = 32, D = 64) one call is 4*S*K*D*H = 1.316 TFLOP, 1.33 ms at
+//   the dense bf16 tensor-core peak; q/k/v/out are 4 * 52 MB.  The design is
+//   K1's (the TPU's sequential key-block grid axis is the loop over 64-key
+//   tiles inside the CTA); the fixed shift removes, per tile, the row max,
+//   its two shuffles, one exp2 per row and D/2 multiplies per thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,13 +109,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+// FIXED = false: K1, online (running-max) softmax.  FIXED = true: K2, the
+// shift is bounds[b, h / (128 / D)] for every key tile.
+template <int D, bool FIXED>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const float* __restrict__ bias,
                               const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                              bf16* __restrict__ out, int S, int K, int H,
-                              int64_t rope_bstride, float scale) {
+                              const float* __restrict__ bounds, bf16* __restrict__ out,
+                              int S, int K, int H, int64_t rope_bstride, float scale) {
   constexpr int LD = Smem<D>::LD;
   constexpr int VEC = D / 8;  // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -172,6 +193,11 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float mfix = 0.f;
+  if constexpr (FIXED) {
+    constexpr int HP = 128 / D;  // heads per 128-lane group
+    mfix = bounds[(int64_t)b * (H / HP) + h / HP];
+  }
 
   const int ntiles = (K + BK - 1) / BK;
   for (int it = 0; it < ntiles; ++it) {
@@ -202,44 +228,61 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
       }
     }
 
-    // online softmax: this thread holds rows lane/4 (e = 0, 1) and lane/4 + 8
+    // softmax: this thread holds rows lane/4 (e = 0, 1) and lane/4 + 8
     // (e = 2, 3), keys 8j + 2*(lane%4) + (e & 1)
     const int k0 = it * BK;
-    float mx[2] = {NEG, NEG};
+    if constexpr (FIXED) {
+      // fixed shift: the bias is added before the bound is subtracted (the
+      // bound holds the bias max); padded keys are -1e30 before the exp
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
-        float val = s[j][e] * scale;
-        if (biasb && key < K) val += biasb[key];
-        val = key < K ? val : NEG;
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+          float val = s[j][e] * scale;
+          if (biasb && key < K) val += biasb[key];
+          val = key < K ? val : NEG;
+          const float p = exp2f((val - mfix) * LOG2E);
+          s[j][e] = p;
+          l[e >> 1] += p;
+        }
+    } else {
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+          float val = s[j][e] * scale;
+          if (biasb && key < K) val += biasb[key];
+          val = key < K ? val : NEG;
+          s[j][e] = val;
+          mx[e >> 1] = fmaxf(mx[e >> 1], val);
+        }
+      float alpha[2], rowsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f((m[r] - m_new) * LOG2E);
+        m[r] = m_new;
       }
-    float alpha[2], rowsum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = exp2f((m[r] - m_new) * LOG2E);
-      m[r] = m_new;
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f((s[j][e] - m[e >> 1]) * LOG2E);
+          s[j][e] = p;
+          rowsum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rowsum[r];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
     }
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f((s[j][e] - m[e >> 1]) * LOG2E);
-        s[j][e] = p;
-        rowsum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rowsum[r];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
 
     // o[16 x D] += p . v: the score accumulators of two n8 tiles are the A
     // fragment of one 16-key step
@@ -279,11 +322,12 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
   }
 }
 
-template <int D>
+template <int D, bool FIXED>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   const void* cos_t, const void* sin_t, void* out, int B, int S, int K,
-                   int H, long long rope_bstride, float scale, cudaStream_t st) {
-  auto kern = flash_attention_packed_kernel<D>;
+                   const void* cos_t, const void* sin_t, const void* bounds, void* out,
+                   int B, int S, int K, int H, long long rope_bstride, float scale,
+                   cudaStream_t st) {
+  auto kern = flash_attention_packed_kernel<D, FIXED>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Smem<D>::BYTES);
   if (err != cudaSuccess) return err;
@@ -291,8 +335,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   kern<<<grid, THREADS, Smem<D>::BYTES, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(bias), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<bf16*>(out), S, K, H,
-      (int64_t)rope_bstride, scale);
+      static_cast<const float*>(sin_t), static_cast<const float*>(bounds),
+      static_cast<bf16*>(out), S, K, H, (int64_t)rope_bstride, scale);
   return cudaGetLastError();
 }
 
@@ -305,8 +349,27 @@ extern "C" int cvt_flash_attention_packed(const void* q, const void* k, const vo
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return (int)launch<64>(q, k, v, bias, cos_t, sin_t, out, B, S, K, H, rope_bstride, scale, st);
+    return (int)launch<64, false>(q, k, v, bias, cos_t, sin_t, nullptr, out, B, S, K, H,
+                                  rope_bstride, scale, st);
   if (D == 128)
-    return (int)launch<128>(q, k, v, bias, cos_t, sin_t, out, B, S, K, H, rope_bstride, scale, st);
+    return (int)launch<128, false>(q, k, v, bias, cos_t, sin_t, nullptr, out, B, S, K, H,
+                                   rope_bstride, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int cvt_flash_attention_packed_long(const void* q, const void* k, const void* v,
+                                               const void* bias, const void* cos_t,
+                                               const void* sin_t, const void* bounds, void* out,
+                                               int B, int S, int K, int H, int D,
+                                               long long rope_bstride, float scale,
+                                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bounds == nullptr || H % (128 / D)) return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return (int)launch<64, true>(q, k, v, bias, cos_t, sin_t, bounds, out, B, S, K, H,
+                                 rope_bstride, scale, st);
+  if (D == 128)
+    return (int)launch<128, true>(q, k, v, bias, cos_t, sin_t, bounds, out, B, S, K, H,
+                                  rope_bstride, scale, st);
   return (int)cudaErrorInvalidValue;
 }

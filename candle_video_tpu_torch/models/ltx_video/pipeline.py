@@ -3,7 +3,8 @@
 
 Prompt encode (T5) → PCG32 latents → flow-matching Euler steps of the DiT
 with CFG/STG rows batched on the batch axis → unpack, denormalise and
-decode-noise mix → VAE decode → [0, 255].  The denoise loop is a Python loop
+decode-noise mix → VAE decode (dense or an exact streamed mode, resolved
+once before the denoise) → [0, 255].  The denoise loop is a Python loop
 over steps; latents stay f32 across steps and enter the DiT in its dtype.
 """
 
@@ -17,9 +18,8 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from candle_video_tpu.utils.rng import Pcg32
-
 from ...ops.rope import rope_cos_sin
+from ...utils.rng import Pcg32
 from . import scheduler as S
 from . import vae as V
 from .configs import LtxFullConfig, T5Config
@@ -147,7 +147,7 @@ class LtxPipeline:
     vae: Any = None  # vae.LtxVaeDecoder
     t5: Any = None  # t5.T5Encoder
     t5_config: Optional[T5Config] = None
-    tokenizer: Any = None  # candle_video_tpu.utils.tokenizer.MockTokenizer or T5 wrapper
+    tokenizer: Any = None  # utils.tokenizer.MockTokenizer or a T5 wrapper
 
     @property
     def device(self):
@@ -220,13 +220,16 @@ def generate(
     max_sequence_length: int = 128,
     step_callback=None,
     stage_times: Optional[dict] = None,
+    vae_tail_stream_chunks: int = 0,  # exact streamed tail (overlap-save)
+    vae_tail_stream_from_ups: bool = False,  # ...started before the last upsampler
+    vae_full_stream_chunks: int = 0,  # every decoder stage streamed
 ):
     """Text-to-video generation.  Returns [B, 3, F, H, W] f32 in [0, 255],
     or the final packed latents [B, S, C] f32 for ``output_type="latent"``.
 
     ``stage_times``, when a dict, receives synchronised wall-clock seconds
     of the stages: ``t5_encode``, ``denoise_steps`` (a list), ``vae_decode``
-    and ``total``."""
+    and ``total``, and ``decode_mode``, the decode keywords used."""
     cfg = pipe.config
     inf, tcfg, vcfg = cfg.inference, cfg.transformer, cfg.vae
     device = pipe.device
@@ -306,6 +309,16 @@ def generate(
         if latents.ndim == 5:
             latents = pack_latents(latents, tcfg.patch_size, tcfg.patch_size_t)
 
+    # ---- decode mode: the one asked for, else resolved once, from the free
+    # memory before the denoise ---------------------------------------------------
+    decode_kw = dict(tail_stream_chunks=vae_tail_stream_chunks,
+                     tail_stream_from_ups=vae_tail_stream_from_ups,
+                     full_stream_chunks=vae_full_stream_chunks)
+    if (output_type == "tensor" and pipe.vae is not None
+            and not vae_tail_stream_chunks and not vae_full_stream_chunks):
+        decode_kw = V.select_decode_mode(vcfg, (eff_batch, vcfg.latent_channels, lf, lh, lw),
+                                         device=device)
+
     # ---- schedule -------------------------------------------------------------
     has_custom = sigmas is not None or timesteps is not None
     if not has_custom:
@@ -375,9 +388,10 @@ def generate(
                           scale, num_frames=lf, height=lh, width=lw,
                           patch_size=tcfg.patch_size, patch_size_t=tcfg.patch_size_t,
                           scaling_factor=vcfg.scaling_factor)
-    video = V.decode(pipe.vae, lat5, temb)
+    video = V.decode(pipe.vae, lat5, temb, **decode_kw)
     video = postprocess_video(video)
     if timing:
+        stage_times["decode_mode"] = decode_kw
         _sync(device)
         stage_times["vae_decode"] = time.perf_counter() - t_dec
         stage_times["total"] = time.perf_counter() - t_start

@@ -177,7 +177,7 @@ def _copy(arr):
 
 def _gguf_linear(f, name: str, device, dtype, keep_quantized: bool):
     """One GGUF linear: dense ``nn.Linear``, or its payload carried as is."""
-    from candle_video_tpu.quant import dequant_np as DQ
+    from ...quant import dequant_np as DQ
 
     def t(arr, to=None):
         return _copy(arr).to(device=device, dtype=to)
@@ -218,9 +218,9 @@ def t5_from_gguf(path: str, cfg: T5Config, device="cpu", dtype=torch.bfloat16,
     as packed nibbles with f32 (s, m), Q5_K as int8 codes with (s, b) in
     groups of 32, Q6_K as int8 with scales in groups of 16; a float tensor
     is quantized to int8 in groups of 32.  Layers may mix payload types.
-    The GGUF reader is the JAX package's numpy-only one, imported here so
+    The GGUF reader (``quant/gguf.py``, numpy only) is imported here so
     that the encoder's other paths do not load it."""
-    from candle_video_tpu.quant.gguf import GGUFFile
+    from ...quant.gguf import GGUFFile
 
     f = GGUFFile(path)
     try:

@@ -4,9 +4,11 @@
 - ``attention_xla_bf16``: operands in the working dtype, f32 scores and
   softmax, p cast back for P·V.  Carries cross-attention (K = 128 caption
   tokens), which the JAX package also leaves unfused below ``_SHORT_KV``.
-- ``attention``: self-attention with RoPE tables goes to K1
-  (``ops/kernels/flash_attention_packed.py``), k rotated here and q inside
-  the kernel; short key lengths without RoPE take ``attention_xla_bf16``.
+- ``attention``: self-attention with RoPE tables goes to
+  ``flash_attention_packed`` (``ops/kernels/flash_attention_packed.py``),
+  which routes to K1, or to K2 above 8192 padded keys; k is rotated here
+  and q inside the kernel.  Short key lengths without RoPE take
+  ``attention_xla_bf16``.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ def attention(q, k, v, scale: float, bias=None, rope=None):
     """Scaled dot-product attention over [B, S, H, D].
 
     ``rope``: optional full-width (cos, sin) tables [1|B, S, H·D]; q and k
-    then arrive unrotated.  k rotates here, q inside K1."""
+    then arrive unrotated.  k rotates here, q inside the kernel."""
     b, s, h, d = q.shape
     kv = k.shape[1]
     if rope is None and kv <= _SHORT_KV:

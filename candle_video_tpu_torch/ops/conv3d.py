@@ -2,8 +2,10 @@
 (``candle_video_tpu/ops/conv3d.py``: ``causal_conv3d``), in NCDHW.
 
 Causal pads ``kt-1`` copies of the first frame on the left; non-causal
-pads ``(kt-1)//2`` on each side; space is zero-padded by ``k//2``.  The conv itself is ``torch.nn.functional.conv3d`` (cuDNN on the
-card), as the JAX package leaves it to XLA.
+pads ``(kt-1)//2`` on each side; ``time_pad="valid"`` pads nothing in T.
+Space is zero-padded by ``k//2``.  The conv itself is
+``torch.nn.functional.conv3d`` (cuDNN on the card), as the JAX package
+leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -22,9 +24,13 @@ def replicate_pad_time(x, kt: int, causal: bool = True):
     return torch.cat([first, x, last], dim=2)
 
 
-def causal_conv3d(x, weight, bias=None, causal: bool = True):
+def causal_conv3d(x, weight, bias=None, causal: bool = True, time_pad: str = "edge"):
     """Stride-1 conv: x [B,I,T,H,W], weight [O,I,kt,kh,kw] -> [B,O,T',H,W]
-    in the weight's dtype."""
+    in the weight's dtype.  ``time_pad="valid"`` skips the temporal padding:
+    the caller has concatenated the boundary frames itself (the streamed
+    decode's overlap-save), and the output is the valid convolution in T."""
     kt, kh, kw = weight.shape[2:]
-    x = replicate_pad_time(x.to(weight.dtype), kt, causal)
+    x = x.to(weight.dtype)
+    if time_pad != "valid":
+        x = replicate_pad_time(x, kt, causal)
     return F.conv3d(x, weight, bias, padding=(0, kh // 2, kw // 2))

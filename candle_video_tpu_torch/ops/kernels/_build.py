@@ -41,6 +41,10 @@ _SIGNATURES = {
     # stream
     "cvt_flash_attention_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, ctypes.c_longlong, _F, _P],
+    # q, k, v, bias, cos, sin, shift [B, G], out, B, S, K, H, D,
+    # rope_batch_stride, scale, stream
+    "cvt_flash_attention_packed_long": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                        _I, _I, _I, ctypes.c_longlong, _F, _P],
     # x, w_q, s, bias, workspace, out, M, K, N, qblock, splits, k_per_split,
     # stream
     "cvt_w8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

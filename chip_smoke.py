@@ -1,16 +1,21 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``candle_video_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the main paths' shapes,
-then drives on random weights, at 512x768x97, checking the outputs and the
-kernels' launch counts of every request:
+holds each against its plain PyTorch version at the main paths' shapes (K2
+also as a copy broken on purpose, which must fail), then drives on random
+weights, checking the outputs and the kernels' launch counts of every
+request:
 
-- the ``0.9.8-2b-distilled`` path (T5-XXL int8 → 28-layer 2B DiT, 7 steps
-  → VAE decode): a cold and a warm request with per-stage times and one more
-  warm request timed end to end only;
-- the ``0.9.8-13b-distilled`` W4A16 resident path (Q4_K-form T5-XXL on K4 →
-  48-layer 13B DiT with int4 block linears → VAE decode): a cold and a warm
-  request;
+- the ``0.9.8-2b-distilled`` path at 512x768x97 (T5-XXL int8 → 28-layer 2B
+  DiT on K1, 7 steps → VAE decode): a cold and a warm request with
+  per-stage times and one more warm request timed end to end only;
+- the same preset's long clip, 512x768x257 (S = 12672: every DiT
+  self-attention on K2): a cold and a warm request, then the exact decode
+  modes (dense, tail stream, ups-split stream; the full stream on a
+  128x192x369 clip) against the dense decode, with their peak memory;
+- the ``0.9.8-13b-distilled`` W4A16 resident path at 512x768x97
+  (Q4_K-form T5-XXL on K4 → 48-layer 13B DiT with int4 block linears →
+  VAE decode with the streamed tail in 6 chunks): a cold and a warm request;
 - the 13B W8A16 tier (int8 T5 → 13B DiT with int8 block linears): one
   request;
 
@@ -29,13 +34,17 @@ import copy
 import gc
 import itertools
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "output", "chip_smoke")  # gitignored
@@ -47,6 +56,15 @@ OUT_DIR = os.path.join(REPO, "output", "chip_smoke")  # gitignored
 # one bf16 rounding) and shares its limit; a K4 that rounds q·s and + m to
 # bf16 in turn, as the DiT's large-M route does, reads ~4e-3.
 K1_TOL = dict(scaled=8e-3, rel=4e-3)   # bf16 output and bf16 p for P·V
+K2_TOL = dict(scaled=8e-3, rel=4e-3)   # K1's limits: the same bf16 roundings
+# Streamed against dense video on [0, 255], PSNR in dB.  Exact in f32 (the
+# CPU tests hold them to 1e-5); in bf16 cuDNN may pick other algorithms for
+# other T extents.  Readings on an H100: the tail and ups-split streams 92.4
+# dB on the 257f latents; the full stream 45.5 dB in bf16, where it
+# streams every stage of a deep random-weight decoder, and far higher in f32.
+DECODE_PSNR_DB = dict(tail=80.0, full_bf16=42.0, full_f32=80.0)
+# the card's dense bf16 tensor-core peak and memory rate (H100 SXM data sheet)
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 K3_TOL = dict(rel=2e-4)                 # bf16 output rounding
 K4_TOL = dict(rel=2e-4)                 # bf16 output rounding
 SLICE_TOL = dict(latent_rel=2e-2, video_psnr=35.0)  # bf16 card run vs f32 plain run
@@ -79,6 +97,47 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the bf16 peak and the bytes (each input read once, each output written
+    once) over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bound(b, s, kv, h, d, with_bias, with_rope) -> dict:
+    hd = h * d
+    nbytes = 2 * (2 * b * s * hd + 2 * b * kv * hd)  # q, out, k, v in bf16
+    nbytes += 4 * b * kv * with_bias + 2 * 4 * s * hd * with_rope  # f32 bias, cos, sin
+    return bound(4.0 * b * h * s * kv * d, nbytes)
+
+
+def sdpa_ms(q, k, v, h, scale, bias, rope):
+    """One ``scaled_dot_product_attention`` call on the [B,H,S,D] views, q
+    rotated beforehand: the library yardstick, used nowhere in the port."""
+    from candle_video_tpu_torch.ops.rope import apply_rotary_emb
+
+    if rope is not None:
+        q = apply_rotary_emb(q, *rope)
+    b, s, hd = q.shape
+    view = lambda t: t.view(b, t.shape[1], h, hd // h).transpose(1, 2)  # noqa: E731
+    mask = None if bias is None else bias.to(q.dtype)
+    return cuda_ms(lambda: F.scaled_dot_product_attention(view(q), view(k), view(v),
+                                                          attn_mask=mask, scale=scale))
+
+
+def path_rope(latent_frames, h, d, dev):
+    """The RoPE tables of a 512x768 request with ``latent_frames`` latent
+    frames (inner h·d)."""
+    from candle_video_tpu_torch.models.ltx_video.pipeline import build_video_coords
+    from candle_video_tpu_torch.ops.rope import rope_cos_sin
+
+    coords = build_video_coords(latent_frames, 16, 24, 25.0)
+    grid = torch.from_numpy(coords / [20.0, 2048.0, 2048.0]).float()
+    return rope_cos_sin(grid.to(dev)[None], h * d)
+
+
 def errors(got, want):
     d = got.float() - want.float()
     scaled = d.abs() / want.float().abs().clamp_min(1.0)
@@ -87,7 +146,6 @@ def errors(got, want):
 
 
 def check_k1(card):
-    from candle_video_tpu_torch.models.ltx_video.pipeline import build_video_coords
     from candle_video_tpu_torch.ops.kernels import flash_attention_packed as K1
     from candle_video_tpu_torch.ops.rope import apply_rotary_emb, rope_cos_sin
 
@@ -112,11 +170,9 @@ def check_k1(card):
         rope = None
         if with_rope:
             if s == 4992:  # the real tables of a 512x768x97 request (inner h·d)
-                coords = build_video_coords(13, 16, 24, 25.0)
-                grid = torch.from_numpy(coords / [20.0, 2048.0, 2048.0]).float()
+                rope = path_rope(13, h, d, dev)
             else:
-                grid = torch.rand(s, 3, generator=g, device=dev)
-            rope = rope_cos_sin(grid.to(dev)[None], h * d)
+                rope = rope_cos_sin(torch.rand(1, s, 3, generator=g, device=dev), h * d)
             k = apply_rotary_emb(k, *rope)  # the path hands K1 a rotated k
         args = dict(num_heads=h, scale=d ** -0.5, bias=bias, rope_q=rope)
         got = K1.flash_attention_packed(q, k, v, **args)
@@ -132,8 +188,120 @@ def check_k1(card):
             f"plain={plain_ms:.3f} ms | {card}")
         if not (err["scaled"] <= K1_TOL["scaled"] and err["rel"] <= K1_TOL["rel"]):
             raise AssertionError(f"K1 {label} disagrees with its plain version: {err}")
-        rows.append(dict(label=label, ms=ms, plain_ms=plain_ms, **err))
+        row = dict(label=label, ms=ms, plain_ms=plain_ms, library_ms=None, **err,
+                   **attention_bound(b, s, kv, h, d, with_bias, with_rope))
+        if not rows:  # the path's shape: the library yardstick too
+            row["library_ms"] = sdpa_ms(q, k, v, h, d ** -0.5, bias, rope)
+            log(f"[K1] {label}: sdpa={row['library_ms']:.3f} ms bound={row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}) | {card}")
+        rows.append(row)
     RESULTS["k1"] = rows
+    return rows[0]
+
+
+# the broken K2: the shift moves from tile to tile (m + tile index), so the
+# key tiles' partial sums no longer add up to one softmax
+K2_BREAK = ("const float p = exp2f((val - mfix) * LOG2E);",
+            "const float p = exp2f((val - (mfix + (float)it)) * LOG2E);")
+
+
+def broken_k2(fn):
+    """Run ``fn`` on a kernel library built from a copy of ``csrc/`` with
+    ``K2_BREAK`` applied (under the gitignored output directory), then
+    restore the real library."""
+    from candle_video_tpu_torch.ops.kernels import _build
+
+    root = os.path.join(OUT_DIR, "broken_k2")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_build.CSRC, os.path.join(root, "csrc"))
+    src = os.path.join(root, "csrc", "flash_attention_packed.cu")
+    with open(src) as f:
+        text = f.read()
+    if text.count(K2_BREAK[0]) != 1:
+        raise AssertionError("the K2 line to break is not in the source")
+    with open(src, "w") as f:
+        f.write(text.replace(*K2_BREAK))
+    saved = _build.CSRC, _build.BUILD_DIR, _build._lib
+    _build.CSRC, _build.BUILD_DIR, _build._lib = Path(root, "csrc"), Path(root, "_build"), None
+    try:
+        return fn()
+    finally:
+        _build.CSRC, _build.BUILD_DIR, _build._lib = saved
+
+
+def check_k2(card):
+    """K2 against its plain version at the 257-frame path's shape (and the
+    13B head width, and a ragged biased case just over the route's
+    threshold), timed beside K1 and SDPA on the same inputs; then the
+    broken copy, which must fail the limits."""
+    from candle_video_tpu_torch.ops.kernels import flash_attention_packed as FA
+    from candle_video_tpu_torch.ops.rope import apply_rotary_emb, rope_cos_sin
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    # (label, B, S, K, H, D, bias, rope): the path's shape first
+    cases = [("path 1x12672x32x64 rope 257f", 1, 12672, 12672, 32, 64, False, True),
+             ("1x12672x32x128 rope 257f", 1, 12672, 12672, 32, 128, False, True),
+             # K_pad 8320 > 8192; 1 of the last tile's 64 key slots is a key
+             ("ragged K=8257 bias rope", 2, 1000, 8257, 32, 64, True, True)]
+    inputs = {}
+    for label, b, s, kv, h, d, with_bias, with_rope in cases:
+        q = torch.randn(b, s, h * d, generator=g, device=dev).mul_(2).bfloat16()
+        k = torch.randn(b, kv, h * d, generator=g, device=dev).bfloat16()
+        v = torch.randn(b, kv, h * d, generator=g, device=dev).bfloat16()
+        bias = None
+        if with_bias:
+            keep = torch.rand(b, kv, generator=g, device=dev) > 0.3
+            bias = ((~keep).float() * -10000.0)[:, None, None, :].contiguous()
+        if s == 12672:
+            rope = path_rope(33, h, d, dev)
+        else:
+            rope = rope_cos_sin(torch.rand(1, s, 3, generator=g, device=dev), h * d)
+        if s == kv:
+            k = apply_rotary_emb(k, *rope)  # the path hands the kernel a rotated k
+        args = dict(num_heads=h, scale=d ** -0.5, bias=bias, rope_q=rope)
+        if not FA.uses_long_kernel(kv):
+            raise AssertionError(f"K2 {label}: K={kv} does not route to K2")
+        got = FA.flash_attention_packed_long(q, k, v, **args)
+        want = FA.flash_attention_packed_long_plain(q, k, v, **args)
+        torch.cuda.synchronize()
+        err = errors(got, want)
+        k1_err = errors(FA.flash_attention_packed_onepass(q, k, v, **args), want)
+        ms = cuda_ms(lambda: FA.flash_attention_packed_long(q, k, v, **args))
+        k1_ms = cuda_ms(lambda: FA.flash_attention_packed_onepass(q, k, v, **args))
+        plain_ms = cuda_ms(lambda: FA.flash_attention_packed_long_plain(q, k, v, **args),
+                           iters=3, warmup=1)
+        library_ms = sdpa_ms(q, k, v, h, d ** -0.5, bias, rope)
+        row = dict(label=label, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   k1_rel=k1_err["rel"], **err,
+                   **attention_bound(b, s, kv, h, d, with_bias, True))
+        tflops = 4.0 * b * h * s * kv * d / ms / 1e9
+        log(f"[K2] {label}: max_abs={err['max_abs']:.3e} scaled={err['scaled']:.3e} "
+            f"rel={err['rel']:.3e} kernel={ms:.3f} ms ({tflops:.1f} TFLOP/s, "
+            f"{row['bound_ms'] / ms:.1%} of the {row['bound_ms']:.3f} ms bound, "
+            f"{row['bound_by']}) K1={k1_ms:.3f} ms (rel {k1_err['rel']:.3e}) "
+            f"sdpa={library_ms:.3f} ms plain={plain_ms:.2f} ms | {card}")
+        if not (err["scaled"] <= K2_TOL["scaled"] and err["rel"] <= K2_TOL["rel"]):
+            raise AssertionError(f"K2 {label} disagrees with its plain version: {err}")
+        rows.append(row)
+        inputs[label] = (q, k, v, args, want)
+    RESULTS["k2"] = rows
+
+    def run_broken():
+        out = {}
+        for label, (q, k, v, args, want) in inputs.items():
+            out[label] = errors(FA.flash_attention_packed_long(q, k, v, **args), want)
+            torch.cuda.synchronize()
+        return out
+
+    broken = broken_k2(run_broken)
+    for label, err in broken.items():
+        log(f"[K2 broken: per-tile shift] {label}: rel={err['rel']:.3e} "
+            f"scaled={err['scaled']:.3e} | {card}")
+        if err["scaled"] <= K2_TOL["scaled"] and err["rel"] <= K2_TOL["rel"]:
+            raise AssertionError(f"the broken K2 passes the limits at {label}: {err}")
+    RESULTS["k2_broken"] = broken
     return rows[0]
 
 
@@ -161,7 +329,9 @@ def check_k3(card):
                 f"stream) plain={plain_ms:.4f} ms | {card}")
             if not err["rel"] <= K3_TOL["rel"]:
                 raise AssertionError(f"K3 K={kk} N={n} qb={qb} disagrees: {err}")
-            rows.append(dict(k=kk, n=n, qblock=qb, ms=ms, plain_ms=plain_ms, **err))
+            nbytes = 2 * 128 * kk + kk * n + 4 * (kk // qb) * n + 2 * 128 * n
+            rows.append(dict(k=kk, n=n, qblock=qb, ms=ms, plain_ms=plain_ms, library_ms=None,
+                             **err, **bound(2.0 * 128 * kk * n, nbytes)))
     RESULTS["k3"] = rows
     return next(r for r in rows if (r["k"], r["n"], r["qblock"]) == (4096, 10240, 32))
 
@@ -201,8 +371,10 @@ def check_k4(card):
             f"stream) plain={plain_ms:.4f} ms | {card}")
         if not err["rel"] <= K4_TOL["rel"]:
             raise AssertionError(f"K4 {label} disagrees with its plain version: {err}")
+        nbytes = 2 * m * kk + weight_bytes + 2 * m * n + 2 * n * with_bias
         rows.append(dict(label=label, m=m, k=kk, n=n, scale_dtype=str(sdt), ms=ms,
-                         plain_ms=plain_ms, weight_gb_s=gbs, **err))
+                         plain_ms=plain_ms, weight_gb_s=gbs, library_ms=None, **err,
+                         **bound(2.0 * m * kk * n, nbytes)))
     RESULTS["k4"] = rows
     return next(r for r in rows if r["label"] == "DiT attn2 k/v")
 
@@ -211,12 +383,12 @@ def check_small_slice(card, quant=None):
     """The tiny slice on the card (kernels, bf16) against the same weights on
     the CPU (plain versions, f32): dense DiT and int8 T5 (K1, K3), or with
     ``quant="w4"`` int4 DiT block linears and the Q4_K-form T5 (K1, K4)."""
-    from candle_video_tpu.utils.tokenizer import MockTokenizer
     from candle_video_tpu_torch.models.ltx_video import configs as C
     from candle_video_tpu_torch.models.ltx_video import pipeline as P
     from candle_video_tpu_torch.models.ltx_video import t5 as T5
     from candle_video_tpu_torch.models.ltx_video import transformer as TF
     from candle_video_tpu_torch.models.ltx_video import vae as V
+    from candle_video_tpu_torch.utils.tokenizer import MockTokenizer
 
     cfg = C.LtxFullConfig(
         inference=C.get_config_by_version("0.9.8-2b-distilled").inference,
@@ -272,9 +444,11 @@ def resident_gib(module) -> float:
                for t in itertools.chain(module.parameters(), module.buffers())) / 2**30
 
 
-def run_request(pipe, name, prompt, seed, want, card, staged=True, tag="e2e"):
-    """One 512x768x97 ``generate()``: checks the video and that the launch
-    counts of this request are exactly ``want``; returns its row."""
+def run_request(pipe, name, prompt, seed, want, card, staged=True, tag="e2e",
+                num_frames=97, **gen_kw):
+    """One 512x768 ``generate()`` of ``num_frames``: checks the video and
+    that the launch counts of this request are exactly ``want``; returns its
+    row."""
     from candle_video_tpu_torch.models.ltx_video.pipeline import generate
     from candle_video_tpu_torch.ops.kernels import _build
 
@@ -283,13 +457,13 @@ def run_request(pipe, name, prompt, seed, want, card, staged=True, tag="e2e"):
     _build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    video = generate(pipe, prompt=prompt, height=512, width=768, num_frames=97,
-                     seed=seed, stage_times=times if staged else None)
+    video = generate(pipe, prompt=prompt, height=512, width=768, num_frames=num_frames,
+                     seed=seed, stage_times=times if staged else None, **gen_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    if tuple(video.shape) != (1, 3, 97, 512, 768):
+    if tuple(video.shape) != (1, 3, num_frames, 512, 768):
         raise AssertionError(f"{tag} {name}: video shape {tuple(video.shape)}")
     if not torch.isfinite(video).all():
         raise AssertionError(f"{tag} {name}: video has non-finite values")
@@ -306,15 +480,16 @@ def run_request(pipe, name, prompt, seed, want, card, staged=True, tag="e2e"):
         row.update(t5_encode_s=times["t5_encode"],
                    denoise_step_ms=[1e3 * s for s in steps],
                    denoise_step_mean_ms=1e3 * sum(steps) / len(steps),
-                   vae_decode_s=times["vae_decode"])
+                   vae_decode_s=times["vae_decode"], decode_mode=times["decode_mode"])
         stages = (f" t5={row['t5_encode_s'] * 1e3:.1f} ms "
                   f"denoise step mean={row['denoise_step_mean_ms']:.1f} ms "
                   f"(steps {', '.join(f'{x:.1f}' for x in row['denoise_step_ms'])}) "
-                  f"vae_decode={row['vae_decode_s']:.3f} s")
+                  f"vae_decode={row['vae_decode_s']:.3f} s "
+                  f"mode={ {k: v for k, v in row['decode_mode'].items() if v} or 'dense'}")
     log(f"[{tag}] {name} request: wall={wall:.4f} s{stages} peak={row['peak_gib']:.2f} GiB "
         f"launches={launches} video mean={row['video_mean']:.2f} "
         f"std={row['video_std']:.2f} | {card}")
-    return row
+    return row, video
 
 
 def build_pipeline(tag, card, version, **kw):
@@ -346,9 +521,143 @@ def run_e2e(card):
     requests = [("cold", "A cat walking on grass", True),
                 ("warm", "A sailboat crossing a bay at sunset", True),
                 ("warm-nosync", "A lighthouse on a cliff in a storm", False)]
-    runs = [run_request(pipe, name, prompt, 42 + i, want, card, staged)
+    runs = [run_request(pipe, name, prompt, 42 + i, want, card, staged)[0]
             for i, (name, prompt, staged) in enumerate(requests)]
     RESULTS["e2e"] = runs
+    release(pipe)
+    return runs[-1]["launches"]
+
+
+def psnr(got, want) -> float:
+    mse = (got.double() - want.double()).square().mean().item()
+    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def decode_peak(decoder, z, temb, **mode):
+    """A decode in ``mode`` -> (video in [0, 255], seconds, peak bytes the
+    decode allocated above what was allocated before it)."""
+    from candle_video_tpu_torch.models.ltx_video import pipeline as P
+    from candle_video_tpu_torch.models.ltx_video import vae as V
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    video = V.decode(decoder, z, temb, **mode)
+    torch.cuda.synchronize()
+    sec, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+    return P.postprocess_video(video), sec, peak
+
+
+def forced_mode(cfg, shape, kind):
+    """The pick of ``select_decode_mode`` of this kind ("tail" or "ups") as
+    the free memory it is told falls, the one whose chunk count is nearest 4
+    (with the card's peaks the ladder picks the tail stream in 2 chunks)."""
+    from candle_video_tpu_torch.models.ltx_video import vae as V
+
+    picks = []
+    for i in range(400):
+        try:
+            picked = V.select_decode_mode(cfg, shape, free_bytes=int(80e9 * 0.97 ** i))
+        except ValueError:  # below the ups-split stream, too few frames for the full
+            break
+        if "tail_stream_chunks" in picked and \
+                picked.get("tail_stream_from_ups", False) == (kind == "ups"):
+            picks.append(picked)
+    if not picks:
+        raise AssertionError(f"select_decode_mode never picks the {kind} stream for {shape}")
+    return min(picks, key=lambda m: abs(m["tail_stream_chunks"] - 4))
+
+
+def check_decode_modes(card, decoder, z, temb, dense_video):
+    """The exact decode modes on the latents ``z`` a 257-frame request
+    decoded, forced by telling ``select_decode_mode`` less free memory, each
+    against the request's dense video; the same modes' peaks on random
+    97-frame latents; the full stream, which needs 46 latent frames for two
+    chunks, on random latents of 47 at 128x192.  The peaks per output
+    pixel-frame are the measurement behind ``vae._*_PEAK_B_PER_PX``; the
+    tail stream is also decoded in 4 chunks."""
+    from candle_video_tpu_torch.models.ltx_video import vae as V
+
+    cfg = decoder.cfg
+    g = torch.Generator(device="cuda").manual_seed(5)
+    free = V._device_free_bytes("cuda")
+    log(f"[decode] free {free / 2**30:.2f} GiB with the 2B pipeline resident: "
+        f"select_decode_mode picks {V.select_decode_mode(cfg, z.shape, device='cuda') or 'dense'}"
+        f" for {tuple(z.shape)} | {card}")
+    rows = []
+
+    def measure(label, zz, tt, mode, want=None, limit=None, dec=decoder):
+        px = zz.shape[0] * zz.shape[2] * cfg.temporal_compression_ratio * \
+            zz.shape[3] * zz.shape[4] * cfg.spatial_compression_ratio ** 2
+        video, sec, peak = decode_peak(dec, zz, tt, **mode)
+        row = dict(label=label, mode=mode, shape=list(zz.shape), seconds=sec,
+                   peak_gib=peak / 2**30, peak_b_per_px=peak / px)
+        msg = ""
+        if want is not None:
+            row.update(psnr_db=psnr(video, want),
+                       max_abs=(video - want).abs().max().item())
+            msg = f" vs dense: PSNR={row['psnr_db']:.2f} dB max_abs={row['max_abs']:.3f}"
+            if not (row["psnr_db"] >= limit and torch.isfinite(video).all()):
+                raise AssertionError(f"decode {label} {mode} disagrees with dense: {row}")
+        log(f"[decode] {label} {mode or 'dense'}: {sec:.3f} s peak {row['peak_gib']:.2f} GiB "
+            f"({row['peak_b_per_px']:.1f} B/px){msg} | {card}")
+        rows.append(row)
+        return video
+
+    measure("257f", z, temb, {}, dense_video, math.inf)  # the request's decode again
+    for kind in ("tail", "ups"):
+        picked = forced_mode(cfg, tuple(z.shape), kind)
+        for mode in [picked] + ([dict(picked, tail_stream_chunks=4)]
+                                if picked["tail_stream_chunks"] != 4 else []):
+            measure("257f", z, temb, mode, dense_video, DECODE_PSNR_DB["tail"])
+    z97 = torch.randn(1, cfg.latent_channels, 13, 16, 24, generator=g, device="cuda")
+    for mode in ({}, {"tail_stream_chunks": 2}, {"tail_stream_chunks": 4},
+                 {"tail_stream_chunks": 4, "tail_stream_from_ups": True}):
+        measure("97f random", z97, temb, mode)
+    need = V.fullstream_first_chunk_min(cfg)
+    z369 = torch.randn(1, cfg.latent_channels, 2 * need + 1, 4, 6, generator=g, device="cuda")
+    dense369 = measure("128x192x369 random", z369, temb, {})
+    measure("128x192x369 random", z369, temb, {"full_stream_chunks": 2}, dense369,
+            DECODE_PSNR_DB["full_bf16"])
+    # the same in f32: what is left of the bf16 gap is the streamed decode's own
+    dec32 = copy.deepcopy(decoder).float()
+    dense32 = measure("128x192x369 random f32", z369, temb, {}, dec=dec32)
+    measure("128x192x369 random f32", z369, temb, {"full_stream_chunks": 2}, dense32,
+            DECODE_PSNR_DB["full_f32"], dec=dec32)
+    del dec32
+    RESULTS["decode_modes"] = dict(full_stream_first_chunk_min=need, rows=rows)
+
+
+def run_long(card):
+    """The 2B preset's 257-frame clip (S = 33·16·24 = 12672): every DiT
+    self-attention routes to K2 (28 layers x 7 steps), none to K1.  The
+    warm request's decoded latents then feed the decode-mode check."""
+    from candle_video_tpu_torch.models.ltx_video import vae as V
+
+    pipe, _ = build_pipeline("long", card, "0.9.8-2b-distilled")
+    want = {"flash_attention_packed_long": 196, "flash_attention_packed": 0,
+            "w8_matmul": 168, "w4_matmul": 0}
+    decoded = {}
+    decode = V.decode
+
+    def keep_latents(decoder, z, temb=None, **kw):
+        decoded.update(z=z, temb=temb)
+        return decode(decoder, z, temb, **kw)
+
+    runs = []
+    for i, (name, prompt) in enumerate([("cold", "A river winding through a forest"),
+                                        ("warm", "A train crossing a snowy bridge")]):
+        V.decode = keep_latents
+        try:
+            row, video = run_request(pipe, name, prompt, 60 + i, want, card, tag="long",
+                                     num_frames=257)
+        finally:
+            V.decode = decode
+        runs.append(row)
+    RESULTS["e2e_long"] = runs
+    check_decode_modes(card, pipe.vae, decoded["z"], decoded["temb"], video)
+    del video
     release(pipe)
     return runs[-1]["launches"]
 
@@ -357,11 +666,13 @@ def run_13b_w4(card):
     """The 13B W4A16 path with the DiT, the Q4_K-form T5 and the VAE decoder
     all resident: K4 carries every T5 linear (24 x 7) and the DiT's
     cross-attention k/v (48 x 2 x 7 steps); block 42 is a permanent skip,
-    computed and then masked, so every layer launches K1."""
+    computed and then masked, so every layer launches K1.  It decodes with
+    the streamed tail in 6 chunks, as the JAX package's 13B W4 bench does."""
     pipe, gib = build_pipeline("13b-w4", card, "0.9.8-13b-distilled", dit_quant="w4",
                                t5_quant="w4")
     want = {"w4_matmul": 168 + 672, "flash_attention_packed": 336, "w8_matmul": 0}
-    runs = [run_request(pipe, name, prompt, 42 + i, want, card, tag="13b-w4")
+    runs = [run_request(pipe, name, prompt, 42 + i, want, card, tag="13b-w4",
+                        vae_tail_stream_chunks=6)[0]
             for i, (name, prompt) in enumerate([
                 ("cold", "A red panda climbing a snow-covered pine tree"),
                 ("warm", "A hot air balloon over a canyon at dawn")])]
@@ -378,8 +689,8 @@ def run_13b_w8(card):
     pipe, gib = build_pipeline("13b-w8", card, "0.9.8-13b-distilled", dit_quant="w8")
     want = {"w8_matmul": 168 + 14 * layers, "flash_attention_packed": 7 * layers,
             "w4_matmul": 0}
-    row = run_request(pipe, f"L'={layers} (full depth)", "A fox running through tall grass",
-                      51, want, card, tag="13b-w8")
+    row, _ = run_request(pipe, f"L'={layers} (full depth)",
+                         "A fox running through tall grass", 51, want, card, tag="13b-w8")
     RESULTS["e2e_13b_w8"] = dict(resident_gib=gib, layers=layers, run=row)
     release(pipe)
 
@@ -426,31 +737,33 @@ def main() -> int:
     _build.lib()
 
     k1 = check_k1(card)
+    k2 = check_k2(card)
     k3 = check_k3(card)
     k4 = check_k4(card)
     check_small_slice(card)
     check_small_slice(card, quant="w4")
     launches = run_e2e(card)
+    launches_long = run_long(card)
     launches_13b = run_13b_w4(card)
     run_13b_w8(card)
     run_cli(card)
 
+    def entry(name, source, replaces, launched, row):
+        return dict(name=name, route="cuda", source=f"candle_video_tpu_torch/csrc/{source}",
+                    replaces=f"candle_video_tpu/ops/pallas/{replaces}", launches=launched,
+                    max_abs_err=row["max_abs"], ms=row["ms"], plain_ms=row["plain_ms"],
+                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                    library_ms=row["library_ms"])
+
     kernels = [
-        dict(name="flash_attention_packed", route="cuda",
-             source="candle_video_tpu_torch/csrc/flash_attention_packed.cu",
-             replaces="candle_video_tpu/ops/pallas/flash_attention_packed.py:543",
-             launches=launches["flash_attention_packed"], max_abs_err=k1["max_abs"],
-             ms=k1["ms"], plain_ms=k1["plain_ms"]),
-        dict(name="w8_matmul", route="cuda",
-             source="candle_video_tpu_torch/csrc/int8_weight_matmul.cu",
-             replaces="candle_video_tpu/ops/pallas/int8_weight_matmul.py:82",
-             launches=launches["w8_matmul"], max_abs_err=k3["max_abs"],
-             ms=k3["ms"], plain_ms=k3["plain_ms"]),
-        dict(name="w4_matmul", route="cuda",
-             source="candle_video_tpu_torch/csrc/int4_weight_matmul.cu",
-             replaces="candle_video_tpu/ops/pallas/int4_weight_matmul.py:205",
-             launches=launches_13b["w4_matmul"], max_abs_err=k4["max_abs"],
-             ms=k4["ms"], plain_ms=k4["plain_ms"]),
+        entry("flash_attention_packed", "flash_attention_packed.cu",
+              "flash_attention_packed.py:543", launches["flash_attention_packed"], k1),
+        entry("flash_attention_packed_long", "flash_attention_packed.cu",
+              "flash_attention_packed.py:392", launches_long["flash_attention_packed_long"], k2),
+        entry("w8_matmul", "int8_weight_matmul.cu", "int8_weight_matmul.py:82",
+              launches["w8_matmul"], k3),
+        entry("w4_matmul", "int4_weight_matmul.cu", "int4_weight_matmul.py:205",
+              launches_13b["w4_matmul"], k4),
     ]
     RESULTS.update(card=card, kernels=kernels)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -173,6 +173,44 @@ def _check_generate(jpipe, ppipe):
     assert psnr > 35.0, psnr
 
 
+@pytest.mark.parametrize("mode", [dict(vae_tail_stream_chunks=2),
+                                  dict(vae_full_stream_chunks=2)], ids=["tail", "full"])
+def test_generate_streamed_decode_equals_dense(jax_trees, mode):
+    """generate() with an exact streamed decode equals its dense decode up to
+    op-order noise on the [0, 255] scale (atol 1e-3, as the JAX package's
+    own check), and the mode it ran is the one asked for."""
+    _, ppipe = _pipelines(jax_trees, DISTILLED)
+    # 15 latent frames: two full-stream chunks clear the pipeline fill of 8
+    kw = dict(prompt="a cat playing piano", height=64, width=96, num_frames=57, seed=3,
+              max_sequence_length=16)
+    dense = PP.generate(ppipe, **kw).numpy()
+    times = {}
+    streamed = PP.generate(ppipe, stage_times=times, **mode, **kw).numpy()
+    assert streamed.shape == dense.shape == (1, 3, 57, 16, 24)
+    np.testing.assert_allclose(streamed, dense, atol=1e-3, rtol=0)
+    used = {k: v for k, v in times["decode_mode"].items() if v}
+    assert used == {k.removeprefix("vae_"): v for k, v in mode.items()}
+
+
+def test_generate_refuses_an_undecodable_clip_before_the_denoise(jax_trees, monkeypatch):
+    """With almost no free memory the decode-mode ladder reaches the full
+    stream, which 33 frames (9 latent frames) cannot feed: generate() raises
+    before its first denoise step, not after the denoise."""
+    from candle_video_tpu_torch.models.ltx_video import vae as PV
+
+    _, ppipe = _pipelines(jax_trees, DISTILLED)
+    monkeypatch.setattr(PV, "_device_free_bytes", lambda device: 1)
+    steps = []
+    kw = dict(prompt="a cat", height=64, width=96, num_frames=33, seed=3,
+              max_sequence_length=16, step_callback=lambda *a: steps.append(a))
+    with pytest.raises(ValueError, match="full stream needs"):
+        PP.generate(ppipe, **kw)
+    assert steps == []
+    # a mode asked for is not resolved
+    video = PP.generate(ppipe, vae_tail_stream_chunks=2, **kw)
+    assert video.shape == (1, 3, 33, 16, 24) and len(steps) > 0
+
+
 def test_pack_unpack_coords_and_postprocess(rng):
     x = rng.normal(size=(2, 8, 4, 6, 6)).astype(np.float32)
     packed = PP.pack_latents(torch.from_numpy(x), 2, 2)
@@ -191,6 +229,20 @@ def test_pack_unpack_coords_and_postprocess(rng):
         PP.rescale_noise_cfg(torch.from_numpy(cfgn), torch.from_numpy(text), 0.7).numpy(),
         np.asarray(JP.rescale_noise_cfg(jnp.asarray(cfgn), jnp.asarray(text), 0.7)),
         atol=1e-5)
+
+
+@pytest.mark.parametrize("seed,inc,shape", [(42, 0, (1, 8, 3, 2, 3)), (7, 3, (5,)),
+                                           (2**40 + 1, 0, (2, 3, 7))])
+def test_port_pcg32_matches_jax_package(seed, inc, shape):
+    """The port's own PCG32 copy draws the JAX package's bits: the u32
+    stream and the Box-Muller normals (odd counts included)."""
+    from candle_video_tpu.utils.rng import Pcg32 as JPcg32
+    from candle_video_tpu_torch.utils.rng import Pcg32
+
+    got, want = Pcg32(seed, inc), JPcg32(seed, inc)
+    assert [got.next_u32() for _ in range(9)] == [want.next_u32() for _ in range(9)]
+    np.testing.assert_array_equal(got.randn(shape), want.randn(shape))
+    np.testing.assert_array_equal(Pcg32(seed, inc).randn(shape), JPcg32(seed, inc).randn(shape))
 
 
 def test_check_inputs_rejects():
@@ -212,10 +264,11 @@ def test_cli_rejects_both_dit_tiers():
 def test_port_generate_never_imports_jax(tmp_path):
     script = textwrap.dedent("""
         import sys
+        sys.modules["candle_video_tpu"] = None  # the JAX package cannot be imported
         import numpy as np
         import torch
         torch.set_num_threads(2)
-        from candle_video_tpu.utils.tokenizer import MockTokenizer
+        from candle_video_tpu_torch.utils.tokenizer import MockTokenizer
         from candle_video_tpu_torch.models.ltx_video import configs as C
         from candle_video_tpu_torch.models.ltx_video import pipeline as P
         from candle_video_tpu_torch.models.ltx_video import t5 as T5
@@ -240,8 +293,8 @@ def test_port_generate_never_imports_jax(tmp_path):
         assert out.shape == (1, 3, 5, 16, 16) and torch.isfinite(out).all()
 
         # the W4 tiers: int4 DiT block linears, T5 from a Q4_K / Q8_0 GGUF file
-        from candle_video_tpu.quant import dequant_np as DQ
-        from candle_video_tpu.quant.gguf import write_gguf
+        from candle_video_tpu_torch.quant import dequant_np as DQ
+        from candle_video_tpu_torch.quant.gguf import write_gguf
         rng = np.random.default_rng(0)
         d, ff = t5cfg.d_model, t5cfg.d_ff
         tensors = {}
@@ -273,6 +326,8 @@ def test_port_generate_never_imports_jax(tmp_path):
         assert out.shape == (1, 3, 5, 16, 16) and torch.isfinite(out).all()
         assert type(pipe.t5.blocks[0].q).__name__ == "Int4Linear"
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        assert sys.modules["candle_video_tpu"] is None
+        assert not [m for m in sys.modules if m.startswith("candle_video_tpu.")]
         print("NO_JAX_OK")
     """) % (TF_CFG, VAE_CFG, T5_CFG)
     env = dict(os.environ, PYTHONPATH=REPO)

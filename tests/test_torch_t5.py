@@ -243,3 +243,37 @@ def test_gguf_forward_matches_jax(tmp_path, rng, keep_quantized):
         assert rel <= 1e-2, rel
     else:
         np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+
+
+def test_port_gguf_reader_matches_jax_reader(tmp_path, rng):
+    """The port's own GGUF reader (``candle_video_tpu_torch/quant``) on a
+    file written by the JAX package's ``write_gguf``: the same names, shapes,
+    metadata and dequantized arrays, bit for bit, for Q8_0, Q4_K and f32."""
+    from candle_video_tpu.quant.gguf import GGUFFile as JGGUFFile
+    from candle_video_tpu.quant.gguf import write_gguf
+    from candle_video_tpu_torch.quant import dequant_np as PDQ
+    from candle_video_tpu_torch.quant.gguf import GGUFFile as PGGUFFile
+
+    tensors = {}
+    for name, tid, shape in [("q8", DQ.GGML_Q8_0, (8, 64)), ("q4k", DQ.GGML_Q4_K, (4, 256)),
+                             ("f32", DQ.GGML_F32, (3, 5))]:
+        x = rng.normal(size=shape).astype(np.float32)
+        raw = (x.view(np.uint8).reshape(-1) if tid == DQ.GGML_F32 else
+               {DQ.GGML_Q8_0: DQ.quantize_q8_0, DQ.GGML_Q4_K: DQ.quantize_q4_k}[tid](x))
+        tensors[name] = (tid, shape, raw)
+    path = str(tmp_path / "mixed.gguf")
+    write_gguf(path, tensors, {"general.architecture": "t5", "t5.block_count": 2})
+    jf, pf = JGGUFFile(path), PGGUFFile(path)
+    try:
+        assert pf.tensor_names() == jf.tensor_names() == list(tensors)
+        assert pf.metadata == jf.metadata
+        for name, (tid, shape, _) in tensors.items():
+            assert pf.tensors[name].ggml_type == tid and tuple(pf.tensors[name].shape) == shape
+            np.testing.assert_array_equal(pf.raw_tensor(name), jf.raw_tensor(name))
+            np.testing.assert_array_equal(pf.tensor(name), jf.tensor(name))
+        q, s, m = PDQ.extract_q4_k_fields(pf.raw_tensor("q4k"), 1024)
+        for a, b in zip((q, s, m), DQ.extract_q4_k_fields(jf.raw_tensor("q4k"), 1024)):
+            np.testing.assert_array_equal(a, b)
+    finally:
+        jf.close()
+        pf.close()

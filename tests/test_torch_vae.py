@@ -1,4 +1,5 @@
-"""The PyTorch port's VAE decoder (dense, NCDHW) against the JAX package's
+"""The PyTorch port's VAE decoder (dense, NCDHW; the streamed modes are in
+``test_torch_vae_stream.py``) against the JAX package's
 decoder on the CPU, in f32, on a narrow timestep-conditioned config.
 Tolerance: atol 5e-4 against both JAX layouts (channels-first and
 channels-last)."""
@@ -74,11 +75,16 @@ def test_denormalize_and_unsupported_modes(rng):
                                  torch.from_numpy(std))
     want = JV.denormalize_latents(jnp.asarray(lat), jnp.asarray(mean), jnp.asarray(std))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
-    dec = PV.init_random(LtxVaeConfig(**TINY), "cpu", torch.float32)
+    dec = PV.init_random(LtxVaeConfig(**TINY), "cpu", torch.float32,
+                         generator=torch.Generator().manual_seed(1))
     with pytest.raises(NotImplementedError):
         PV.decode(dec, torch.zeros(1, 8, 2, 2, 2), tiling=True)
-    with pytest.raises(NotImplementedError):
-        PV.decode(dec, torch.zeros(1, 8, 2, 2, 2), stream_chunks=2)
+    z = torch.from_numpy(rng.normal(size=(1, 8, 3, 2, 2)).astype(np.float32))
+    with torch.no_grad():
+        streamed = PV.decode(dec, z, tail_stream_chunks=2)
+        dense = PV.decode(dec, z)
+    assert streamed.shape == dense.shape == (1, 3, 9, 16, 16)
+    np.testing.assert_allclose(streamed.numpy(), dense.numpy(), atol=1e-5, rtol=0)
 
 
 def test_decoder_rejects_noise_injection():
