@@ -10,6 +10,9 @@ Run: python -m candle_video_tpu_torch.cli --height 256 --width 384 \
          --num-frames 25 --output-type latent
      python -m candle_video_tpu_torch.cli --version 0.9.8-13b-distilled \
          --dit-int4 --height 256 --width 384 --num-frames 25 --output-type latent
+
+Sequence-parallel ring attention over N GPUs of one host, one process each:
+     torchrun --nproc_per_node=N -m candle_video_tpu_torch.cli --mesh sp=N
 """
 
 from __future__ import annotations
@@ -20,12 +23,14 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from .models.ltx_video import t5 as T5
 from .models.ltx_video import transformer as TF
 from .models.ltx_video import vae as V
 from .models.ltx_video.configs import get_config_by_version, t5_xxl
 from .models.ltx_video.pipeline import LtxPipeline, generate
+from .parallel import make_mesh
 from .utils.tokenizer import MockTokenizer
 
 
@@ -70,7 +75,55 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model dtype; the CUDA kernels take bfloat16")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="'sp=N': sequence-parallel ring attention (video tokens shard "
+                        "over N ranks, K/V rotate around the ring), one process per GPU "
+                        "under torchrun (NCCL; gloo with --device cpu); 'sp=1' alone is an "
+                        "ordinary request. dp=M shards the batch, which needs M videos "
+                        "(generate(sp_mesh=make_mesh(dp=M, sp=N))); tp and pp are not "
+                        "yet ported")
     return p
+
+
+_MESH_AXES = ("dp", "sp", "tp", "pp")
+
+
+def parse_mesh(spec: str) -> dict:
+    """'sp=4,dp=2' -> {"dp": 2, "sp": 4, "tp": 1, "pp": 1}; tp > 1 and pp > 1
+    are refused (not yet ported)."""
+    mesh = dict.fromkeys(_MESH_AXES, 1)
+    for item in spec.split(","):
+        key, sep, val = item.partition("=")
+        if key.strip() not in mesh or not sep or not val.strip().isdigit() or int(val) < 1:
+            raise SystemExit(f"--mesh {spec!r}: expected comma-separated axis=N with axes "
+                             f"{', '.join(_MESH_AXES)} and N >= 1")
+        mesh[key.strip()] = int(val)
+    for axis, item in (("tp", "TP, mesh.py shard_transformer_params"),
+                       ("pp", "PP, parallel/pipeline.py denoise_loop_pp")):
+        if mesh[axis] > 1:
+            raise SystemExit(f"--mesh {axis}={mesh[axis]}: {axis} > 1 is not yet ported "
+                             f"(ROADMAP item 13: {item})")
+    return mesh
+
+
+def init_distributed(mesh: dict, device_name: str):
+    """Join the torchrun process group (RANK, WORLD_SIZE, LOCAL_RANK and the
+    rendezvous address from the environment), NCCL on the GPU of
+    LOCAL_RANK or gloo on the CPU; returns the (dp, sp) mesh."""
+    need = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    if any(k not in os.environ for k in need):
+        n = mesh["dp"] * mesh["sp"]
+        raise SystemExit(f"--mesh with dp x sp = {n} ranks runs one process per GPU: "
+                         f"torchrun --nproc_per_node={n} -m candle_video_tpu_torch.cli "
+                         "--mesh ...")
+    device = resolve_device(device_name)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    return make_mesh(dp=mesh["dp"], sp=mesh["sp"], device=device)
 
 
 _DIT_INITS = {None: TF.init_random, "w8": TF.init_random_w8, "w4": TF.init_random_w4}
@@ -117,18 +170,41 @@ def main(argv=None) -> int:
     if args.dit_int8 and args.dit_int4:
         raise SystemExit("--dit-int8 and --dit-int4 are mutually exclusive")
     dit_quant = "w8" if args.dit_int8 else ("w4" if args.dit_int4 else None)
-    device = resolve_device(args.device)
+    mesh = parse_mesh(args.mesh) if args.mesh else None
+    if mesh is not None and dit_quant:
+        flag = "--dit-int4" if args.dit_int4 else "--dit-int8"
+        raise SystemExit(f"{flag} is a single-GPU capacity path and does not compose with "
+                         f"--mesh: drop {flag} for multi-GPU runs")
+    if mesh is not None and mesh["dp"] > 1:
+        raise SystemExit(f"--mesh dp={mesh['dp']} shards the batch, and the CLI generates "
+                         "one video: use dp=1")
+    if mesh is not None and mesh["sp"] > 1:
+        if args.progress:
+            raise SystemExit("--progress is a step callback, which the sequence-parallel "
+                             "loop does not take: drop it with --mesh sp=N")
+        sp_mesh = init_distributed(mesh, args.device)
+        try:
+            return _run(args, dit_quant, sp_mesh.device, sp_mesh)
+        finally:
+            dist.destroy_process_group()
+    return _run(args, dit_quant, resolve_device(args.device))
+
+
+def _run(args, dit_quant, device, sp_mesh=None) -> int:
+    lead = sp_mesh is None or dist.get_rank() == 0  # the rank that prints and saves
+    say = print if lead else (lambda *a, **k: None)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    print(f"candle-video-tpu-torch | preset {args.version} | device {device}"
-          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-          + (f" | DiT weight-only {dit_quant}" if dit_quant else ""))
-    print("random-init DiT and VAE (smoke mode): their checkpoint loading is not ported yet"
-          + (f"; T5 from {args.t5_gguf}" if args.t5_gguf else ""))
+    say(f"candle-video-tpu-torch | preset {args.version} | device {device}"
+        + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+        + (f" | DiT weight-only {dit_quant}" if dit_quant else "")
+        + (f" | mesh dp={sp_mesh.dp} sp={sp_mesh.sp} (ring attention)" if sp_mesh else ""))
+    say("random-init DiT and VAE (smoke mode): their checkpoint loading is not ported yet"
+        + (f"; T5 from {args.t5_gguf}" if args.t5_gguf else ""))
     t0 = time.perf_counter()
     pipe = build_random_pipeline(args.version, device, dtype, seed=args.seed,
                                  dit_quant=dit_quant, t5_gguf=args.t5_gguf,
                                  t5_keep_quantized=args.t5_keep_quantized)
-    print(f"built pipeline in {time.perf_counter() - t0:.2f}s")
+    say(f"built pipeline in {time.perf_counter() - t0:.2f}s")
 
     step_callback = None
     if args.progress:
@@ -141,12 +217,14 @@ def main(argv=None) -> int:
                    num_inference_steps=args.num_inference_steps,
                    guidance_scale=args.guidance_scale, seed=args.seed,
                    output_type=args.output_type, step_callback=step_callback,
-                   vae_tail_stream_chunks=args.vae_stream_chunks)
+                   vae_tail_stream_chunks=args.vae_stream_chunks, sp_mesh=sp_mesh)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    print(f"generation took {time.perf_counter() - t0:.2f}s, output {tuple(out.shape)}")
+    say(f"generation took {time.perf_counter() - t0:.2f}s, output {tuple(out.shape)}")
     if not torch.isfinite(out).all():
         raise SystemExit("generation produced non-finite values")
+    if not lead:
+        return 0
 
     os.makedirs(args.output_dir, exist_ok=True)
     if args.output_type == "latent":

@@ -46,6 +46,26 @@
 //   K1's (the TPU's sequential key-block grid axis is the loop over 64-key
 //   tiles inside the CTA); the fixed shift removes, per tile, the row max,
 //   its two shuffles, one exp2 per row and D/2 multiplies per thread.
+//
+// K5, one ring-attention step, is the same template with RING = true.
+// Replaces: candle_video_tpu/ops/pallas/ring_chunk.py:91, ring_chunk_update
+//   -> _kernel (pallas_call at :134), which carries every DiT self-attention
+//   of the sequence-parallel denoise (--mesh sp=N): the local q chunk
+//   [B, Sq, H*D] (rotated outside) against one K/V chunk [B, Sc, H*D] that
+//   rotates around the ring, folded into the carried online-softmax state.
+//   The state is plain, not lane-packed: running max m and sum l f32
+//   [B, H, Sq], unnormalised output acc f32 [B, Sq, H*D], updated in place.
+//   Each CTA seeds its registers from the incoming (m, l, acc) of its 128
+//   rows of one head instead of (-1e30, 0, 0), streams the chunk's key tiles
+//   with K1's loop (no RoPE, no bias, padded keys masked) and writes the
+//   state back unnormalised.  The TPU kernel takes the chunk's row max
+//   first and merges once; this carries the running max across tiles, so p
+//   is rounded to bf16 against another shift (K1's limits hold).  m stays
+//   finite at -1e30, so m_old - m_new is never -inf - (-inf).
+// What bounds it: arithmetic, as K1, plus the state, read and written once
+//   in f32.  At sp = 1 on the 2B path (Sq = Sc = 4992, H = 32, D = 64) the
+//   products are 204 GFLOP (0.206 ms at the bf16 peak) and the bytes 225 MB
+//   (0.067 ms at 3.35 TB/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,14 +130,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // FIXED = false: K1, online (running-max) softmax.  FIXED = true: K2, the
-// shift is bounds[b, h / (128 / D)] for every key tile.
-template <int D, bool FIXED>
+// shift is bounds[b, h / (128 / D)] for every key tile.  RING = true: K5,
+// K1's online softmax seeded from and written back to the carried state
+// (m_st, l_st [B, H, S], acc_st [B, S, H*D], f32) instead of out.
+template <int D, bool FIXED, bool RING>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const float* __restrict__ bias,
                               const float* __restrict__ cos_t, const float* __restrict__ sin_t,
                               const float* __restrict__ bounds, bf16* __restrict__ out,
-                              int S, int K, int H, int64_t rope_bstride, float scale) {
+                              float* __restrict__ m_st, float* __restrict__ l_st,
+                              float* __restrict__ acc_st, int S, int K, int H,
+                              int64_t rope_bstride, float scale) {
   constexpr int LD = Smem<D>::LD;
   constexpr int VEC = D / 8;  // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -197,6 +221,30 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
   if constexpr (FIXED) {
     constexpr int HP = 128 / D;  // heads per 128-lane group
     mfix = bounds[(int64_t)b * (H / HP) + h / HP];
+  }
+  // this thread's rows: lane/4 (e = 0, 1) and lane/4 + 8 (e = 2, 3)
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int64_t st0 = ((int64_t)b * H + h) * S + row0;  // m_st / l_st index of row0
+  float* accb = RING ? acc_st + (int64_t)b * S * HD + (int64_t)h * D + 2 * (lane % 4) : nullptr;
+  if constexpr (RING) {
+    // seed the online softmax with the carried state; the row's l rides on
+    // one lane of its four, since the four lanes' partial sums add at the end
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < S) {
+        m[r] = m_st[st0 + 8 * r];
+        l[r] = lane % 4 == 0 ? l_st[st0 + 8 * r] : 0.f;
+      }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < S) {
+          const float2 a =
+              *reinterpret_cast<const float2*>(accb + (int64_t)(row0 + 8 * r) * HD + 8 * n);
+          o[n][2 * r] = a.x;
+          o[n][2 * r + 1] = a.y;
+        }
   }
 
   const int ntiles = (K + BK - 1) / BK;
@@ -308,7 +356,23 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  const int row0 = q0 + warp * 16 + lane / 4;
+  if constexpr (RING) {
+    // the state goes back unnormalised, in f32
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < S && lane % 4 == 0) {
+        m_st[st0 + 8 * r] = m[r];
+        l_st[st0 + 8 * r] = l[r];
+      }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < S)
+          *reinterpret_cast<float2*>(accb + (int64_t)(row0 + 8 * r) * HD + 8 * n) =
+              make_float2(o[n][2 * r], o[n][2 * r + 1]);
+    return;
+  }
   const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
   bf16* ob = out + (int64_t)b * S * HD + (int64_t)h * D + 2 * (lane % 4);
 #pragma unroll
@@ -322,12 +386,13 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
   }
 }
 
-template <int D, bool FIXED>
+template <int D, bool FIXED, bool RING = false>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const void* cos_t, const void* sin_t, const void* bounds, void* out,
                    int B, int S, int K, int H, long long rope_bstride, float scale,
-                   cudaStream_t st) {
-  auto kern = flash_attention_packed_kernel<D, FIXED>;
+                   cudaStream_t st, void* m_st = nullptr, void* l_st = nullptr,
+                   void* acc_st = nullptr) {
+  auto kern = flash_attention_packed_kernel<D, FIXED, RING>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Smem<D>::BYTES);
   if (err != cudaSuccess) return err;
@@ -336,7 +401,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(bias), static_cast<const float*>(cos_t),
       static_cast<const float*>(sin_t), static_cast<const float*>(bounds),
-      static_cast<bf16*>(out), S, K, H, (int64_t)rope_bstride, scale);
+      static_cast<bf16*>(out), static_cast<float*>(m_st), static_cast<float*>(l_st),
+      static_cast<float*>(acc_st), S, K, H, (int64_t)rope_bstride, scale);
   return cudaGetLastError();
 }
 
@@ -371,5 +437,19 @@ extern "C" int cvt_flash_attention_packed_long(const void* q, const void* k, con
   if (D == 128)
     return (int)launch<128, true>(q, k, v, bias, cos_t, sin_t, bounds, out, B, S, K, H,
                                   rope_bstride, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int cvt_ring_chunk_update(const void* q, const void* k, const void* v, void* m,
+                                     void* l, void* acc, int B, int Sq, int Sc, int H, int D,
+                                     float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m == nullptr || l == nullptr || acc == nullptr) return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return (int)launch<64, false, true>(q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr, B,
+                                        Sq, Sc, H, 0, scale, st, m, l, acc);
+  if (D == 128)
+    return (int)launch<128, false, true>(q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                         B, Sq, Sc, H, 0, scale, st, m, l, acc);
   return (int)cudaErrorInvalidValue;
 }

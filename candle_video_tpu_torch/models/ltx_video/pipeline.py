@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ...ops.rope import rope_cos_sin
+from ...parallel.sequence import denoise_loop_sp
 from ...utils.rng import Pcg32
 from . import scheduler as S
 from . import vae as V
@@ -45,25 +46,27 @@ def unpack_latents(latents, num_frames: int, height: int, width: int,
     return x.reshape(b, c, num_frames * pt, height * p, width * p)
 
 
-def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float):
-    """std-ratio guidance rescale with the unbiased std."""
-    def _std(x):
-        return x.reshape(x.shape[0], -1).std(dim=1).reshape(
-            (x.shape[0],) + (1,) * (x.ndim - 1))
+def _row_std(x):
+    """Unbiased std over everything but the batch axis, broadcastable to x."""
+    return x.reshape(x.shape[0], -1).std(dim=1).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
 
-    rescaled = noise_cfg * (_std(noise_pred_text) / _std(noise_cfg))
+
+def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float, std=_row_std):
+    """std-ratio guidance rescale with the unbiased std; ``std`` computes it
+    (the sequence-parallel loop passes one that reduces over the ring)."""
+    rescaled = noise_cfg * (std(noise_pred_text) / std(noise_cfg))
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
 
 
 def guidance_combine(pred, b: int, num_conds: int, guidance_scale: float,
-                     guidance_rescale: float, stg_scale: float):
+                     guidance_rescale: float, stg_scale: float, std=_row_std):
     """CFG/STG combination of batched rows [uncond; cond; perturbed]."""
     if num_conds == 1:
         return pred
     uncond, text = pred[:b], pred[b:2 * b]
     combined = uncond + guidance_scale * (text - uncond)
     if guidance_rescale > 0:
-        combined = rescale_noise_cfg(combined, text, guidance_rescale)
+        combined = rescale_noise_cfg(combined, text, guidance_rescale, std)
     if num_conds == 3:
         combined = combined + stg_scale * (text - pred[2 * b:])
     return combined
@@ -223,16 +226,31 @@ def generate(
     vae_tail_stream_chunks: int = 0,  # exact streamed tail (overlap-save)
     vae_tail_stream_from_ups: bool = False,  # ...started before the last upsampler
     vae_full_stream_chunks: int = 0,  # every decoder stage streamed
+    sp_mesh=None,  # parallel.Mesh: the sequence-parallel denoise over its ring
 ):
     """Text-to-video generation.  Returns [B, 3, F, H, W] f32 in [0, 255],
     or the final packed latents [B, S, C] f32 for ``output_type="latent"``.
 
     ``stage_times``, when a dict, receives synchronised wall-clock seconds
     of the stages: ``t5_encode``, ``denoise_steps`` (a list), ``vae_decode``
-    and ``total``, and ``decode_mode``, the decode keywords used."""
+    and ``total``, and ``decode_mode``, the decode keywords used.
+
+    ``sp_mesh`` (``parallel.make_mesh``): every rank of the mesh calls
+    ``generate`` with the same arguments; the denoise runs sequence-parallel
+    (``parallel.denoise_loop_sp``) and every rank returns the same output."""
     cfg = pipe.config
     inf, tcfg, vcfg = cfg.inference, cfg.transformer, cfg.vae
     device = pipe.device
+    stochastic = cfg.scheduler.stochastic_sampling or inf.stochastic_sampling
+    if sp_mesh is not None:
+        if step_callback is not None:
+            raise ValueError("step_callback is not supported in SP mode")
+        if stochastic:
+            raise ValueError("stochastic sampling is not supported in SP mode (the loop "
+                             "draws one full-sequence noise tensor; shards would need a "
+                             "different stream)")
+        if sp_mesh.device != device:
+            raise ValueError(f"sp_mesh is on {sp_mesh.device}, the pipeline on {device}")
     timing = stage_times is not None
     t_start = time.perf_counter()
 
@@ -349,16 +367,18 @@ def generate(
     skip_mask = torch.from_numpy(skip).to(device) if skip.any() else None
 
     # ---- denoise --------------------------------------------------------------
-    stochastic = cfg.scheduler.stochastic_sampling or inf.stochastic_sampling
-    gen = torch.Generator(device=device).manual_seed(seed + 1) if stochastic else None
     step_seconds = [] if timing else None
-    final = denoise_loop(
-        pipe.transformer, latents, enc_states, enc_mask, schedule, rope_cos, rope_sin,
-        num_conds=num_conds, guidance_scale=guidance_scale,
-        guidance_rescale=guidance_rescale if do_cfg else 0.0, stg_scale=stg_scale,
-        skip_layer_mask=skip_mask, stochastic=stochastic, generator=gen,
-        step_callback=step_callback, step_seconds=step_seconds,
-    )
+    guidance = dict(num_conds=num_conds, guidance_scale=guidance_scale,
+                    guidance_rescale=guidance_rescale if do_cfg else 0.0, stg_scale=stg_scale,
+                    skip_layer_mask=skip_mask, step_seconds=step_seconds)
+    if sp_mesh is not None:
+        final = denoise_loop_sp(pipe.transformer, latents, enc_states, enc_mask, schedule,
+                                rope_cos, rope_sin, mesh=sp_mesh, **guidance)
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed + 1) if stochastic else None
+        final = denoise_loop(pipe.transformer, latents, enc_states, enc_mask, schedule,
+                             rope_cos, rope_sin, stochastic=stochastic, generator=gen,
+                             step_callback=step_callback, **guidance)
     if timing:
         stage_times["denoise_steps"] = step_seconds
     if output_type == "latent":

@@ -3,6 +3,9 @@
 proj_in → AdaLN-single time embedding → caption projection → N blocks
 (RMSNorm + 6-way AdaLN modulation, RoPE'd self-attention on K1, unnormed
 cross-attention, tanh-GELU FF) → final scale/shift modulation → proj_out.
+With ``ring`` (a ``torch.distributed`` group, the sequence-parallel loop of
+``parallel/sequence.py``) the hidden states are this rank's token shard and
+self-attention runs over the ring (``ops/ring.py``, K5 on the card).
 
 The JAX package stacks the blocks as ``[L, ...]`` arrays under ``lax.scan``;
 here they are a ``ModuleList`` walked by a Python loop.  Linear weights are
@@ -30,12 +33,16 @@ from ...ops.kernels.int4_weight_matmul import quantize_int4_blockwise
 from ...ops.kernels.int8_weight_matmul import quantize_int8_blockwise
 from ...ops.norms import layer_norm, rms_norm
 from ...ops.quant_linear import Int4Linear, Int8Linear
+from ...ops.ring import ring_self_attention
+from ...ops.rope import apply_rotary_emb
 from .configs import LtxTransformerConfig
 
 
 class Attention(nn.Module):
     """LTXVideoAttnProcessor: QK-RMSNorm (eps 1e-5, affine, across the full
-    inner dim) → RoPE → SDPA → to_out."""
+    inner dim) → RoPE → SDPA → to_out.  With ``ring``, self-attention rotates
+    q and k here and runs over the ring's K/V chunks; cross-attention stays
+    local."""
 
     def __init__(self, cfg: LtxTransformerConfig, dtype):
         super().__init__()
@@ -48,7 +55,7 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(d, d, bias=cfg.attention_bias, dtype=dtype)
         self.to_out = nn.Linear(d, d, bias=cfg.attention_out_bias, dtype=dtype)
 
-    def forward(self, hidden, encoder_hidden=None, bias=None, rope=None):
+    def forward(self, hidden, encoder_hidden=None, bias=None, rope=None, ring=None):
         b, s, _ = hidden.shape
         enc = hidden if encoder_hidden is None else encoder_hidden
         kv = enc.shape[1]
@@ -56,9 +63,15 @@ class Attention(nn.Module):
         k = rms_norm(self.to_k(enc), self.norm_k, eps=1e-5)
         v = self.to_v(enc)
         h, hd = self.heads, self.head_dim
-        out = attention(q.reshape(b, s, h, hd), k.reshape(b, kv, h, hd),
-                        v.reshape(b, kv, h, hd), 1.0 / math.sqrt(hd),
-                        bias=bias, rope=rope)
+        if ring is not None and encoder_hidden is None:
+            if rope is not None:
+                q, k = (apply_rotary_emb(t, rope[0], rope[1]) for t in (q, k))
+            out = ring_self_attention(q.reshape(b, s, h, hd), k.reshape(b, kv, h, hd),
+                                      v.reshape(b, kv, h, hd), 1.0 / math.sqrt(hd), ring)
+        else:
+            out = attention(q.reshape(b, s, h, hd), k.reshape(b, kv, h, hd),
+                            v.reshape(b, kv, h, hd), 1.0 / math.sqrt(hd),
+                            bias=bias, rope=rope)
         return self.to_out(out.reshape(b, s, h * hd))
 
 
@@ -84,14 +97,15 @@ class TransformerBlock(nn.Module):
         self.ff = FeedForward(cfg.inner_dim, dtype)
         self.scale_shift_table = nn.Parameter(torch.empty(6, cfg.inner_dim, dtype=dtype))
 
-    def forward(self, hidden, encoder_hidden, temb6, rope, enc_bias, skip_row=None):
+    def forward(self, hidden, encoder_hidden, temb6, rope, enc_bias, skip_row=None,
+                ring=None):
         b, d = hidden.shape[0], hidden.shape[-1]
         orig = hidden
         ada = self.scale_shift_table[None, None] + temb6.reshape(b, -1, 6, d)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = ada.unbind(2)
 
         norm = rms_norm(hidden, eps=self.eps) * (1.0 + scale_msa) + shift_msa
-        hidden = hidden + self.attn1(norm, rope=rope) * gate_msa
+        hidden = hidden + self.attn1(norm, rope=rope, ring=ring) * gate_msa
         # cross-attention: no pre-norm, no RoPE, no gate
         hidden = hidden + self.attn2(hidden, encoder_hidden, bias=enc_bias)
         norm = rms_norm(hidden, eps=self.eps) * (1.0 + scale_mlp) + shift_mlp
@@ -131,10 +145,12 @@ class LtxTransformer3D(nn.Module):
         return self.time_linear(silu(emb)), emb
 
     def forward(self, hidden_states, encoder_hidden_states, timestep, rope_cos,
-                rope_sin, encoder_attention_mask=None, skip_layer_mask=None):
+                rope_sin, encoder_attention_mask=None, skip_layer_mask=None, ring=None):
         """hidden [B,S,C_in], caption states [B,K,C_cap], timestep [B] f32,
         rope tables [1|B,S,inner] f32, mask [B,K] (1 keep / 0 pad), skip
-        mask [L,B] (1 = skip).  Returns [B,S,C_out] in the model dtype."""
+        mask [L,B] (1 = skip), ``ring`` the sequence-parallel process group
+        (S and the tables are then this rank's shard).  Returns [B,S,C_out]
+        in the model dtype."""
         dtype = self.proj_in.weight.dtype
         b = hidden_states.shape[0]
         x = self.proj_in(hidden_states.to(dtype))
@@ -152,7 +168,7 @@ class LtxTransformer3D(nn.Module):
         rope = (rope_cos, rope_sin)
         for i, blk in enumerate(self.blocks):
             skip_row = None if skip_layer_mask is None else skip_layer_mask[i]
-            x = blk(x, enc, temb6, rope, enc_bias, skip_row)
+            x = blk(x, enc, temb6, rope, enc_bias, skip_row, ring)
 
         ss = self.scale_shift_table.to(emb.dtype)[None, None] + emb[:, :, None, :]
         shift, scale = ss[:, :, 0], ss[:, :, 1]

@@ -45,6 +45,9 @@ _SIGNATURES = {
     # rope_batch_stride, scale, stream
     "cvt_flash_attention_packed_long": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                         _I, _I, _I, ctypes.c_longlong, _F, _P],
+    # q, k, v, m, l, acc (the state, updated in place), B, Sq, Sc, H, D, scale,
+    # stream
+    "cvt_ring_chunk_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, w_q, s, bias, workspace, out, M, K, N, qblock, splits, k_per_split,
     # stream
     "cvt_w8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

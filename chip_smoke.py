@@ -2,13 +2,16 @@
 
 Builds the hand-written CUDA kernels from ``candle_video_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the main paths' shapes (K2
-also as a copy broken on purpose, which must fail), then drives on random
-weights, checking the outputs and the kernels' launch counts of every
-request:
+and K5 also as copies broken on purpose, which must fail), then drives on
+random weights, checking the outputs and the kernels' launch counts of
+every request:
 
 - the ``0.9.8-2b-distilled`` path at 512x768x97 (T5-XXL int8 → 28-layer 2B
   DiT on K1, 7 steps → VAE decode): a cold and a warm request with
   per-stage times and one more warm request timed end to end only;
+- the same request through the sequence-parallel path in a ring of one
+  (``generate(sp_mesh=make_mesh(sp=1))`` in a one-rank NCCL group): every
+  DiT self-attention on K5, none on K1, against the request without it;
 - the same preset's long clip, 512x768x257 (S = 12672: every DiT
   self-attention on K2): a cold and a warm request, then the exact decode
   modes (dense, tail stream, ups-split stream; the full stream on a
@@ -30,6 +33,7 @@ and the exit code is not 0.  Without CUDA it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import itertools
@@ -40,6 +44,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -57,6 +62,13 @@ OUT_DIR = os.path.join(REPO, "output", "chip_smoke")  # gitignored
 # bf16 in turn, as the DiT's large-M route does, reads ~4e-3.
 K1_TOL = dict(scaled=8e-3, rel=4e-3)   # bf16 output and bf16 p for P·V
 K2_TOL = dict(scaled=8e-3, rel=4e-3)   # K1's limits: the same bf16 roundings
+# K5 against its plain version: acc/l in bf16 terms at K1's limits (p rounds
+# to bf16 against the running max, the plain version against the chunk's);
+# acc, which carries that bf16 p, rel <= 4e-3 in norm (readings 1.3e-3 to
+# 1.5e-3).  m and l see no bf16 rounding, only f32 summation order: readings
+# 4e-7 to 8e-7, limits 1e-5, so a kernel that carries either a little wrong
+# fails.
+K5_TOL = dict(scaled=8e-3, rel=4e-3, m_scaled=1e-5, l_rel=1e-5, acc_rel=4e-3)
 # Streamed against dense video on [0, 255], PSNR in dB.  Exact in f32 (the
 # CPU tests hold them to 1e-5); in bf16 cuDNN may pick other algorithms for
 # other T extents.  Readings on an H100: the tail and ups-split streams 92.4
@@ -127,6 +139,26 @@ def sdpa_ms(q, k, v, h, scale, bias, rope):
                                                           attn_mask=mask, scale=scale))
 
 
+def sdpa_flash_ms(q, k, v, h, scale):
+    """``scaled_dot_product_attention`` on the flash backend, q already
+    rotated: the library yardstick, used nowhere in the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, s, hd = q.shape
+    view = lambda t: t.view(b, t.shape[1], h, hd // h).transpose(1, 2)  # noqa: E731
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        return cuda_ms(lambda: F.scaled_dot_product_attention(view(q), view(k), view(v),
+                                                              scale=scale))
+
+
+def ring_bound(b, sq, sc, h, d) -> dict:
+    """K5's bound: q, k, v in bf16 read once, the f32 state (acc, m, l) read
+    and written once."""
+    hd = h * d
+    nbytes = 2 * (b * sq * hd + 2 * b * sc * hd) + 2 * 4 * (b * sq * hd + 2 * b * h * sq)
+    return bound(4.0 * b * h * sq * sc * d, nbytes)
+
+
 def path_rope(latent_frames, h, d, dev):
     """The RoPE tables of a 512x768 request with ``latent_frames`` latent
     frames (inner h·d)."""
@@ -190,7 +222,7 @@ def check_k1(card):
             raise AssertionError(f"K1 {label} disagrees with its plain version: {err}")
         row = dict(label=label, ms=ms, plain_ms=plain_ms, library_ms=None, **err,
                    **attention_bound(b, s, kv, h, d, with_bias, with_rope))
-        if not rows:  # the path's shape: the library yardstick too
+        if s == kv == 4992:  # the 2B and 13B path shapes: the library yardstick too
             row["library_ms"] = sdpa_ms(q, k, v, h, d ** -0.5, bias, rope)
             log(f"[K1] {label}: sdpa={row['library_ms']:.3f} ms bound={row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}) | {card}")
@@ -205,22 +237,28 @@ K2_BREAK = ("const float p = exp2f((val - mfix) * LOG2E);",
             "const float p = exp2f((val - (mfix + (float)it)) * LOG2E);")
 
 
-def broken_k2(fn):
+# the broken K5: each CTA drops the carried running sum l (starts it at 0),
+# so after more than one ring step the output is normalised by the last
+# chunks' sums only
+K5_BREAK = ("l[r] = lane % 4 == 0 ? l_st[st0 + 8 * r] : 0.f;", "l[r] = 0.f;")
+
+
+def broken_copy(tag, substitution, fn):
     """Run ``fn`` on a kernel library built from a copy of ``csrc/`` with
-    ``K2_BREAK`` applied (under the gitignored output directory), then
-    restore the real library."""
+    ``substitution`` applied to ``flash_attention_packed.cu`` (under the
+    gitignored output directory), then restore the real library."""
     from candle_video_tpu_torch.ops.kernels import _build
 
-    root = os.path.join(OUT_DIR, "broken_k2")
+    root = os.path.join(OUT_DIR, f"broken_{tag}")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(_build.CSRC, os.path.join(root, "csrc"))
     src = os.path.join(root, "csrc", "flash_attention_packed.cu")
     with open(src) as f:
         text = f.read()
-    if text.count(K2_BREAK[0]) != 1:
-        raise AssertionError("the K2 line to break is not in the source")
+    if text.count(substitution[0]) != 1:
+        raise AssertionError(f"the {tag} line to break is not in the source")
     with open(src, "w") as f:
-        f.write(text.replace(*K2_BREAK))
+        f.write(text.replace(*substitution))
     saved = _build.CSRC, _build.BUILD_DIR, _build._lib
     _build.CSRC, _build.BUILD_DIR, _build._lib = Path(root, "csrc"), Path(root, "_build"), None
     try:
@@ -295,13 +333,135 @@ def check_k2(card):
             torch.cuda.synchronize()
         return out
 
-    broken = broken_k2(run_broken)
+    broken = broken_copy("k2", K2_BREAK, run_broken)
     for label, err in broken.items():
         log(f"[K2 broken: per-tile shift] {label}: rel={err['rel']:.3e} "
             f"scaled={err['scaled']:.3e} | {card}")
         if err["scaled"] <= K2_TOL["scaled"] and err["rel"] <= K2_TOL["rel"]:
             raise AssertionError(f"the broken K2 passes the limits at {label}: {err}")
     RESULTS["k2_broken"] = broken
+    return rows[0]
+
+
+def ring_run(K5, q, chunks, h, scale, fn):
+    """The ring's recurrence on one rank: ``fn`` (K5 or its plain version)
+    over the K/V ``chunks`` in ring order from the initial state; returns
+    the state after every step."""
+    b, sq, hd = q.shape
+    m, l, acc = K5.init_ring_state(b, sq, h, hd // h, device=q.device)
+    states = []
+    for k, v in chunks:
+        fn(q, k, v, m, l, acc, num_heads=h, scale=scale)
+        states.append((m.clone(), l.clone(), acc.clone()))
+    return states
+
+
+def ring_output(state, h, dtype=torch.bfloat16):
+    m, l, acc = state
+    b, sq, hd = acc.shape
+    return (acc.view(b, sq, h, hd // h) / l.transpose(1, 2)[..., None]).reshape(b, sq, hd).to(
+        dtype)
+
+
+def state_errors(got, want):
+    """K5's state against the plain version's: m scaled by max(1, |m|), l
+    and acc relative in norm."""
+    (gm, gl, ga), (wm, wl, wa) = got, want
+    return dict(m_scaled=((gm - wm).abs() / wm.abs().clamp_min(1.0)).max().item(),
+                l_rel=((gl - wl).norm() / wl.norm()).item(),
+                acc_rel=((ga - wa).norm() / wa.norm()).item())
+
+
+def check_k5(card):
+    """K5 (one ring step) against its plain version, state after every step
+    and the final ``acc / l``, at the ring's chunk shapes on the 512x768x97
+    path's rotated q and k: (a) sp = 1, one chunk, also against K1 and plain
+    attention; (b) sp = 4, a 1248-row q chunk against four 1248-key chunks
+    in ring order, the output against attention over all 4992 keys; (c) the
+    13B head width D = 128 at sp = 2; (d) a ragged Sq = Sc = 1000, B = 2,
+    two steps, which a missing padded-key mask fails.  Each timed beside K1
+    and SDPA (flash backend) on one chunk; then the broken copy (e), which
+    must fail the multi-step cases."""
+    from candle_video_tpu_torch.ops.kernels import flash_attention_packed as K1
+    from candle_video_tpu_torch.ops.kernels import ring_chunk as K5
+    from candle_video_tpu_torch.ops.rope import apply_rotary_emb
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    # (label, B, S (all keys), sp, H, D): sp chunks of S / sp, rank 0's view
+    cases = [("(a) sp=1 1x4992x32x64", 1, 4992, 1, 32, 64),
+             ("(b) sp=4 1x1248x(4x1248)x32x64", 1, 4992, 4, 32, 64),
+             ("(c) sp=2 1x2496x(2x2496)x32x128", 1, 4992, 2, 32, 128),
+             ("(d) ragged 2x1000x(2x1000)x32x64", 2, 2000, 2, 32, 64)]
+    rows, inputs = [], {}
+    for label, b, s, sp, h, d in cases:
+        hd, scale, n = h * d, d ** -0.5, s // sp
+        q = torch.randn(b, s, hd, generator=g, device=dev).mul_(2).bfloat16()
+        k = torch.randn(b, s, hd, generator=g, device=dev).bfloat16()
+        v = torch.randn(b, s, hd, generator=g, device=dev).bfloat16()
+        if s == 4992:  # the real tables of a 512x768x97 request: rotated q and k
+            rope = path_rope(13, h, d, dev)
+            q, k = apply_rotary_emb(q, *rope), apply_rotary_emb(k, *rope)
+        qc = q[:, :n].contiguous()
+        # rank 0 holds chunk 0, then receives chunks sp-1, ..., 1 around the ring
+        chunks = [(k[:, j * n:(j + 1) * n].contiguous(), v[:, j * n:(j + 1) * n].contiguous())
+                  for j in [0] + list(range(sp - 1, 0, -1))]
+        got = ring_run(K5, qc, chunks, h, scale, K5.ring_chunk_update)
+        want = ring_run(K5, qc, chunks, h, scale, K5.ring_chunk_update_plain)
+        torch.cuda.synchronize()
+        steps = [state_errors(gs, ws) for gs, ws in zip(got, want)]
+        out, out_plain = ring_output(got[-1], h), ring_output(want[-1], h)
+        err = errors(out, out_plain)
+        attn = K1.flash_attention_packed_plain(qc, k, v, num_heads=h, scale=scale)
+        k1_all = K1.flash_attention_packed_onepass(qc, k, v, num_heads=h, scale=scale)
+        vs_attention, vs_k1 = errors(out, attn), errors(out, k1_all)
+        # timed on one chunk: K5 (state updated in place, as on the path), K1,
+        # SDPA (flash backend) and the plain version on the same inputs
+        k0, v0 = chunks[0]
+        m, l, acc = K5.init_ring_state(b, n, h, d, device=dev)
+        args = dict(num_heads=h, scale=scale)
+        ms = cuda_ms(lambda: K5.ring_chunk_update(qc, k0, v0, m, l, acc, **args))
+        k1_ms = cuda_ms(lambda: K1.flash_attention_packed_onepass(qc, k0, v0, **args))
+        library_ms = sdpa_flash_ms(qc, k0, v0, h, scale)
+        plain_ms = cuda_ms(lambda: K5.ring_chunk_update_plain(qc, k0, v0, m, l, acc, **args),
+                           iters=3, warmup=1)
+        row = dict(label=label, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   steps=steps, vs_attention_rel=vs_attention["rel"],
+                   vs_k1_rel=vs_k1["rel"], **err, **ring_bound(b, n, n, h, d))
+        worst = {key: max(st[key] for st in steps) for key in steps[0]}
+        log(f"[K5] {label}: out max_abs={err['max_abs']:.3e} scaled={err['scaled']:.3e} "
+            f"rel={err['rel']:.3e}; state over {sp} step(s) m_scaled<={worst['m_scaled']:.2e} "
+            f"l_rel<={worst['l_rel']:.2e} acc_rel<={worst['acc_rel']:.2e}; vs attention over "
+            f"all {s} keys rel={vs_attention['rel']:.3e} (K1 on them {vs_k1['rel']:.3e}) | "
+            f"one chunk: kernel={ms:.3f} ms "
+            f"({4.0 * b * h * n * n * d / ms / 1e9:.1f} TFLOP/s, "
+            f"{row['bound_ms'] / ms:.1%} of the {row['bound_ms']:.4f} ms bound, "
+            f"{row['bound_by']}) K1={k1_ms:.3f} ms sdpa(flash)={library_ms:.3f} ms "
+            f"plain={plain_ms:.2f} ms | {card}")
+        if not (err["scaled"] <= K5_TOL["scaled"] and err["rel"] <= K5_TOL["rel"]
+                and vs_attention["rel"] <= K5_TOL["rel"]
+                and all(worst[key] <= K5_TOL[key] for key in worst)):
+            raise AssertionError(f"K5 {label} disagrees with its plain version: {row}")
+        rows.append(row)
+        inputs[label] = (qc, chunks, h, scale, out_plain)
+    RESULTS["k5"] = rows
+
+    def run_broken():
+        res = {}
+        for label, (qc, chunks, h, scale, want) in inputs.items():
+            out = ring_output(ring_run(K5, qc, chunks, h, scale, K5.ring_chunk_update)[-1], h)
+            torch.cuda.synchronize()
+            res[label] = errors(out, want)
+        return res
+
+    broken = broken_copy("k5", K5_BREAK, run_broken)
+    for label, err in broken.items():
+        multi = not label.startswith("(a)")
+        log(f"[K5 broken: carried l dropped] {label}: rel={err['rel']:.3e} "
+            f"scaled={err['scaled']:.3e}{'' if multi else ' (one step: l_old = 0)'} | {card}")
+        if multi and err["scaled"] <= K5_TOL["scaled"] and err["rel"] <= K5_TOL["rel"]:
+            raise AssertionError(f"the broken K5 passes the limits at {label}: {err}")
+    RESULTS["k5_broken"] = broken
     return rows[0]
 
 
@@ -528,6 +688,72 @@ def run_e2e(card):
     return runs[-1]["launches"]
 
 
+@contextlib.contextmanager
+def ring_of_one():
+    """A one-rank NCCL process group, met through a FileStore in a temporary
+    directory (no port), destroyed on the way out."""
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def run_sp(card):
+    """The sequence-parallel path in a ring of one: a one-rank NCCL group
+    (through a FileStore in a temporary directory, no port), the 2B
+    512x768x97 request through ``generate(sp_mesh=make_mesh(sp=1))`` cold
+    and warm (every DiT self-attention on K5: 28 layers x 7 steps, none on
+    K1), each against the same request without the mesh, at the same seed
+    and weights, by its final latents and its video."""
+    from candle_video_tpu_torch.models.ltx_video import pipeline as P
+    from candle_video_tpu_torch.parallel import make_mesh
+
+    pipe, _ = build_pipeline("sp", card, "0.9.8-2b-distilled")
+    finals = []
+    loops = P.denoise_loop, P.denoise_loop_sp
+
+    def keep(loop):
+        def run(*a, **kw):
+            finals.append(loop(*a, **kw))
+            return finals[-1]
+        return run
+
+    prompt, seed = "A koi pond in the rain", 70
+    with ring_of_one():
+        P.denoise_loop, P.denoise_loop_sp = map(keep, loops)
+        try:
+            mesh = make_mesh(sp=1)
+            _, ref = run_request(pipe, "no mesh", prompt, seed,
+                                 {"flash_attention_packed": 196, "ring_chunk_update": 0,
+                                  "w8_matmul": 168}, card, tag="sp")
+            ref = ref.cpu()  # off the card, so that the SP requests' peaks are their own
+            want = {"ring_chunk_update": 196, "flash_attention_packed": 0, "w8_matmul": 168}
+            runs = []
+            for name in ("cold", "warm"):
+                row, video = run_request(pipe, f"sp=1 {name}", prompt, seed, want, card,
+                                         tag="sp", sp_mesh=mesh)
+                rel = ((finals[-1] - finals[0]).norm() / finals[0].norm()).item()
+                row.update(latent_rel=rel, video_psnr=psnr(video.cpu(), ref))
+                del video
+                log(f"[sp] sp=1 {name} against the request without the mesh: latent "
+                    f"rel={rel:.3e} video PSNR={row['video_psnr']:.2f} dB | {card}")
+                if not (rel <= SLICE_TOL["latent_rel"]
+                        and row["video_psnr"] >= SLICE_TOL["video_psnr"]):
+                    raise AssertionError(f"sp=1 {name} disagrees with the request without "
+                                         f"the mesh: {row}")
+                runs.append(row)
+        finally:
+            P.denoise_loop, P.denoise_loop_sp = loops
+    RESULTS["e2e_sp"] = runs
+    release(pipe)
+    return runs[-1]["launches"]
+
+
 def psnr(got, want) -> float:
     mse = (got.double() - want.double()).square().mean().item()
     return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
@@ -740,9 +966,11 @@ def main() -> int:
     k2 = check_k2(card)
     k3 = check_k3(card)
     k4 = check_k4(card)
+    k5 = check_k5(card)
     check_small_slice(card)
     check_small_slice(card, quant="w4")
     launches = run_e2e(card)
+    launches_sp = run_sp(card)
     launches_long = run_long(card)
     launches_13b = run_13b_w4(card)
     run_13b_w8(card)
@@ -764,6 +992,8 @@ def main() -> int:
               launches["w8_matmul"], k3),
         entry("w4_matmul", "int4_weight_matmul.cu", "int4_weight_matmul.py:205",
               launches_13b["w4_matmul"], k4),
+        entry("ring_chunk_update", "flash_attention_packed.cu", "ring_chunk.py:91",
+              launches_sp["ring_chunk_update"], k5),
     ]
     RESULTS.update(card=card, kernels=kernels)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
