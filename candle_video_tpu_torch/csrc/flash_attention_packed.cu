@@ -66,6 +66,23 @@
 //   in f32.  At sp = 1 on the 2B path (Sq = Sc = 4992, H = 32, D = 64) the
 //   products are 204 GFLOP (0.206 ms at the bf16 peak) and the bytes 225 MB
 //   (0.067 ms at 3.35 TB/s).
+//
+// K6, classic flash attention, is the same template with ROPE = false.
+// Replaces: candle_video_tpu/ops/pallas/flash_attention.py:175,
+//   flash_attention -> _fa_kernel (:41) and _fa_kernel_onepass (:108),
+//   pallas_call at :257: the TPU's fallback for the shapes the lane-packed
+//   layout does not take (heads that do not fill 128-lane groups), which
+//   carries the SVD UNet's level-0 self-attention (5 heads of 64).  Same
+//   function as both Pallas bodies: non-causal softmax(q k^T * scale + bias)
+//   v with the true running row max (no bound, no shift: SVD logits are not
+//   clipped), an optional f32 key bias [B, 1, 1, K], padded keys at -1e30, p
+//   rounded to bf16 before P*V, f32 accumulation, bf16 out.  It reads
+//   [B, S, H, D] as it lies, which is K1's [B, S, H*D] with any H: the
+//   TPU's [B*H, S, D] transposes were a tiling choice and are gone.  K1's
+//   q-rotation code is compiled out rather than skipped at run time.
+// What bounds it: arithmetic.  At the SVD path shape (B = 28 frames of a
+//   CFG pair, S = K = 72*128 = 9216, H = 5, D = 64) one call is 3.04 TFLOP,
+//   3.08 ms at the bf16 peak; q/k/v/out are 0.66 GB, 0.2 ms at 3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,8 +149,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // FIXED = false: K1, online (running-max) softmax.  FIXED = true: K2, the
 // shift is bounds[b, h / (128 / D)] for every key tile.  RING = true: K5,
 // K1's online softmax seeded from and written back to the carried state
-// (m_st, l_st [B, H, S], acc_st [B, S, H*D], f32) instead of out.
-template <int D, bool FIXED, bool RING>
+// (m_st, l_st [B, H, S], acc_st [B, S, H*D], f32) instead of out.  ROPE =
+// false (K5, K6) compiles the q rotation out.
+template <int D, bool FIXED, bool RING, bool ROPE>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -177,7 +195,7 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
     uint4 val = make_uint4(0, 0, 0, 0);
     if (row < S) {
       val = *reinterpret_cast<const uint4*>(qb + (int64_t)row * HD + c);
-      if (cos_t) {
+      if (ROPE && cos_t) {
         const int64_t off = (int64_t)b * rope_bstride + (int64_t)row * HD + (int64_t)h * D + c;
         float cs[8], sn[8], x[8];
         *reinterpret_cast<float4*>(cs) = reinterpret_cast<const float4*>(cos_t + off)[0];
@@ -386,13 +404,13 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
   }
 }
 
-template <int D, bool FIXED, bool RING = false>
+template <int D, bool FIXED, bool RING = false, bool ROPE = true>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const void* cos_t, const void* sin_t, const void* bounds, void* out,
                    int B, int S, int K, int H, long long rope_bstride, float scale,
                    cudaStream_t st, void* m_st = nullptr, void* l_st = nullptr,
                    void* acc_st = nullptr) {
-  auto kern = flash_attention_packed_kernel<D, FIXED, RING>;
+  auto kern = flash_attention_packed_kernel<D, FIXED, RING, ROPE>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Smem<D>::BYTES);
   if (err != cudaSuccess) return err;
@@ -446,10 +464,25 @@ extern "C" int cvt_ring_chunk_update(const void* q, const void* k, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m == nullptr || l == nullptr || acc == nullptr) return (int)cudaErrorInvalidValue;
   if (D == 64)
-    return (int)launch<64, false, true>(q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr, B,
-                                        Sq, Sc, H, 0, scale, st, m, l, acc);
+    return (int)launch<64, false, true, false>(q, k, v, nullptr, nullptr, nullptr, nullptr,
+                                               nullptr, B, Sq, Sc, H, 0, scale, st, m, l, acc);
   if (D == 128)
-    return (int)launch<128, false, true>(q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                         B, Sq, Sc, H, 0, scale, st, m, l, acc);
+    return (int)launch<128, false, true, false>(q, k, v, nullptr, nullptr, nullptr, nullptr,
+                                                nullptr, B, Sq, Sc, H, 0, scale, st, m, l, acc);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6: q, k, v [B, S|K, H, D] bf16, optional bias f32 [B, 1, 1, K], out
+// [B, S, H, D] bf16
+extern "C" int cvt_flash_attention(const void* q, const void* k, const void* v,
+                                   const void* bias, void* out, int B, int S, int K, int H,
+                                   int D, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return (int)launch<64, false, false, false>(q, k, v, bias, nullptr, nullptr, nullptr, out,
+                                                B, S, K, H, 0, scale, st);
+  if (D == 128)
+    return (int)launch<128, false, false, false>(q, k, v, bias, nullptr, nullptr, nullptr, out,
+                                                 B, S, K, H, 0, scale, st);
   return (int)cudaErrorInvalidValue;
 }

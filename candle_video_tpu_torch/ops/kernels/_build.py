@@ -48,6 +48,8 @@ _SIGNATURES = {
     # q, k, v, m, l, acc (the state, updated in place), B, Sq, Sc, H, D, scale,
     # stream
     "cvt_ring_chunk_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, bias, out, B, S, K, H, D, scale, stream
+    "cvt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, w_q, s, bias, workspace, out, M, K, N, qblock, splits, k_per_split,
     # stream
     "cvt_w8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -39,6 +39,15 @@ _BOUND_CLIP = 40.0
 _ONEPASS_KP_MAX = 8192
 
 
+def packed_viable(s_len: int, kv_len: int, num_heads: int, head_dim: int) -> bool:
+    """True when the lane-packed kernels apply, as the JAX ``packed_viable``
+    decides: the head dim divides 128 and the heads fill 128-lane groups
+    (sequence lengths do not matter)."""
+    if head_dim > 128 or 128 % head_dim != 0:
+        return False
+    return num_heads % (128 // head_dim) == 0
+
+
 def uses_long_kernel(kv_len: int) -> bool:
     """True when ``flash_attention_packed`` takes K2 for ``kv_len`` keys."""
     return -(-kv_len // 128) * 128 > _ONEPASS_KP_MAX

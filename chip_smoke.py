@@ -21,6 +21,12 @@ every request:
   VAE decode with the streamed tail in 6 chunks): a cold and a warm request;
 - the 13B W8A16 tier (int8 T5 → 13B DiT with int8 block linears): one
   request;
+- SVD image-to-video at its published request, 576x1024x14 with CFG (CLIP
+  → noise-augmented VAE encode → 25 v-prediction Euler steps of the UNet at
+  batch 28, the level-0 self-attention on K6 and levels 1-2 on K1 →
+  temporal VAE decode): a 2-step warm-up request and the 25-step one, after
+  K6 against its plain version (and a copy broken on purpose) and a tiny SVD
+  slice against the CPU;
 
 and runs the CLI for the 2B and the 13B int4 paths.  Run from the
 repository root:
@@ -62,6 +68,7 @@ OUT_DIR = os.path.join(REPO, "output", "chip_smoke")  # gitignored
 # bf16 in turn, as the DiT's large-M route does, reads ~4e-3.
 K1_TOL = dict(scaled=8e-3, rel=4e-3)   # bf16 output and bf16 p for P·V
 K2_TOL = dict(scaled=8e-3, rel=4e-3)   # K1's limits: the same bf16 roundings
+K6_TOL = dict(scaled=8e-3, rel=4e-3)   # K1's limits: the same bf16 roundings
 # K5 against its plain version: acc/l in bf16 terms at K1's limits (p rounds
 # to bf16 against the running max, the plain version against the chunk's);
 # acc, which carries that bf16 p, rel <= 4e-3 in norm (readings 1.3e-3 to
@@ -80,6 +87,13 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 K3_TOL = dict(rel=2e-4)                 # bf16 output rounding
 K4_TOL = dict(rel=2e-4)                 # bf16 output rounding
 SLICE_TOL = dict(latent_rel=2e-2, video_psnr=35.0)  # bf16 card run vs f32 plain run
+# The tiny SVD slice with CFG: the 1 -> 3 ramp scales up the random-weight
+# UNet's bf16 rounding, so bf16 alone drifts past 2e-2 from f32.  Readings on
+# an H100 against the CPU f32 run: the card 2.717e-2, the CPU's bf16 run of
+# the plain versions 2.732e-2 (1.543e-2 and 1.545e-2 without CFG); the two
+# bf16 runs differ from each other by 2.806e-2, as the kernels round p in
+# another order.  The card may drift 1.25x as far as the CPU's bf16 run.
+SVD_CFG_DRIFT = 1.25
 RESULTS: dict = {}
 
 
@@ -177,6 +191,14 @@ def errors(got, want):
                 mse=d.square().mean().item(), rel=(d.norm() / want.float().norm()).item())
 
 
+def by_frame(plain, q, k, v, bias=None, **kw):
+    """A plain version one batch row at a time, the rows concatenated: at
+    the SVD path's batch of 28 its scores would not fit in one call."""
+    return torch.cat([plain(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                            bias=None if bias is None else bias[i:i + 1], **kw)
+                      for i in range(q.shape[0])])
+
+
 def check_k1(card):
     from candle_video_tpu_torch.ops.kernels import flash_attention_packed as K1
     from candle_video_tpu_torch.ops.rope import apply_rotary_emb, rope_cos_sin
@@ -190,7 +212,10 @@ def check_k1(card):
              ("ragged S=K=1000 bias rope", 1, 1000, 1000, 32, 64, True, True),
              ("D=128 S=1000 K=1031 bias", 2, 1000, 1031, 16, 128, True, False),
              # 63 of the last tile's 64 key slots are padding: a missing mask fails
-             ("K=65 bias padded tile", 2, 200, 65, 8, 64, True, False)]
+             ("K=65 bias padded tile", 2, 200, 65, 8, 64, True, False),
+             # the SVD UNet's levels 1 and 2 at 576x1024x14 with CFG (batch 28)
+             ("SVD level 1 28x2304x10x64", 28, 2304, 2304, 10, 64, False, False),
+             ("SVD level 2 28x576x20x64", 28, 576, 576, 20, 64, False, False)]
     for label, b, s, kv, h, d, with_bias, with_rope in cases:
         q = torch.randn(b, s, h * d, generator=g, device=dev).mul_(2).bfloat16()
         k = torch.randn(b, kv, h * d, generator=g, device=dev).bfloat16()
@@ -207,12 +232,15 @@ def check_k1(card):
                 rope = rope_cos_sin(torch.rand(1, s, 3, generator=g, device=dev), h * d)
             k = apply_rotary_emb(k, *rope)  # the path hands K1 a rotated k
         args = dict(num_heads=h, scale=d ** -0.5, bias=bias, rope_q=rope)
+        plain = K1.flash_attention_packed_plain
+        if b == 28:
+            plain = lambda *a, **kw: by_frame(K1.flash_attention_packed_plain, *a, **kw)  # noqa: E731
         got = K1.flash_attention_packed(q, k, v, **args)
-        want = K1.flash_attention_packed_plain(q, k, v, **args)
+        want = plain(q, k, v, **args)
         torch.cuda.synchronize()
         err = errors(got, want)
         ms = cuda_ms(lambda: K1.flash_attention_packed(q, k, v, **args))
-        plain_ms = cuda_ms(lambda: K1.flash_attention_packed_plain(q, k, v, **args), iters=5)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, **args), iters=5)
         flops = 4.0 * b * h * s * kv * d
         log(f"[K1] {label}: max_abs={err['max_abs']:.3e} scaled={err['scaled']:.3e} "
             f"mse={err['mse']:.3e} "
@@ -222,7 +250,7 @@ def check_k1(card):
             raise AssertionError(f"K1 {label} disagrees with its plain version: {err}")
         row = dict(label=label, ms=ms, plain_ms=plain_ms, library_ms=None, **err,
                    **attention_bound(b, s, kv, h, d, with_bias, with_rope))
-        if s == kv == 4992:  # the 2B and 13B path shapes: the library yardstick too
+        if s == kv == 4992 or b == 28:  # the paths' shapes: the library yardstick too
             row["library_ms"] = sdpa_ms(q, k, v, h, d ** -0.5, bias, rope)
             log(f"[K1] {label}: sdpa={row['library_ms']:.3f} ms bound={row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}) | {card}")
@@ -463,6 +491,104 @@ def check_k5(card):
             raise AssertionError(f"the broken K5 passes the limits at {label}: {err}")
     RESULTS["k5_broken"] = broken
     return rows[0]
+
+
+# the broken K6: the running max no longer rescales what was summed before
+# it (alpha = 1), so any row whose max rises after its first key tile is wrong
+K6_BREAK = ("alpha[r] = exp2f((m[r] - m_new) * LOG2E);", "alpha[r] = 1.f;")
+SVD_K6_SHAPE = (28, 9216, 5, 64)  # 576x1024x14 with CFG: 2 x 14 frames, 72·128 tokens
+
+
+def check_k6(card):
+    """K6 against its plain version: (a) the SVD path shape cut to one frame
+    (1x9216x5x64), (b) D = 128, H = 3, ragged K = 1000 with an f32 bias,
+    (c) K = 65, which a missing padded-key mask fails.  Each timed beside
+    SDPA (flash backend without a bias, the default one with it).  Then the
+    full path call [28, 9216, 5, 64], held against its plain version run
+    one frame at a time (at once it would hold 47.6 GB of scores), and the
+    broken copy, which must fail (a)-(c).  Returns the path call's row."""
+    from candle_video_tpu_torch.ops.kernels import flash_attention as K6
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    # (label, B, S, K, H, D, bias): the path's shape first
+    cases = [("(a) path frame 1x9216x5x64", 1, 9216, 9216, 5, 64, False),
+             ("(b) D=128 H=3 S=777 K=1000 bias", 2, 777, 1000, 3, 128, True),
+             # 63 of the last tile's 64 key slots are padding: a missing mask fails
+             ("(c) K=65 bias padded tile", 2, 200, 65, 5, 64, True)]
+    rows, inputs = [], {}
+    for label, b, s, kv, h, d, with_bias in cases:
+        q = torch.randn(b, s, h, d, generator=g, device=dev).mul_(2).bfloat16()
+        k = torch.randn(b, kv, h, d, generator=g, device=dev).bfloat16()
+        v = torch.randn(b, kv, h, d, generator=g, device=dev).bfloat16()
+        bias = None
+        if with_bias:
+            keep = torch.rand(b, kv, generator=g, device=dev) > 0.2
+            bias = ((~keep).float() * -10000.0)[:, None, None, :].contiguous()
+        args = dict(scale=d ** -0.5, bias=bias)
+        got = K6.flash_attention(q, k, v, **args)
+        want = K6.flash_attention_plain(q, k, v, **args)
+        torch.cuda.synchronize()
+        err = errors(got, want)
+        ms = cuda_ms(lambda: K6.flash_attention(q, k, v, **args))
+        plain_ms = cuda_ms(lambda: K6.flash_attention_plain(q, k, v, **args), iters=3, warmup=1)
+        q3, k3, v3 = (t.view(b, t.shape[1], h * d) for t in (q, k, v))
+        library_ms = (sdpa_ms(q3, k3, v3, h, d ** -0.5, bias, None) if with_bias
+                      else sdpa_flash_ms(q3, k3, v3, h, d ** -0.5))
+        row = dict(label=label, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **err,
+                   **attention_bound(b, s, kv, h, d, with_bias, False))
+        log(f"[K6] {label}: max_abs={err['max_abs']:.3e} scaled={err['scaled']:.3e} "
+            f"rel={err['rel']:.3e} kernel={ms:.3f} ms "
+            f"({4.0 * b * h * s * kv * d / ms / 1e9:.1f} TFLOP/s, {row['bound_ms'] / ms:.1%} of "
+            f"the {row['bound_ms']:.4f} ms bound, {row['bound_by']}) "
+            f"sdpa{'' if with_bias else '(flash)'}={library_ms:.3f} ms plain={plain_ms:.2f} ms "
+            f"| {card}")
+        if not (err["scaled"] <= K6_TOL["scaled"] and err["rel"] <= K6_TOL["rel"]):
+            raise AssertionError(f"K6 {label} disagrees with its plain version: {err}")
+        rows.append(row)
+        inputs[label] = (q, k, v, args, want)
+    RESULTS["k6"] = rows
+
+    # the full call of the path (one UNet forward makes five), its plain
+    # version one frame at a time
+    b, s, h, d = SVD_K6_SHAPE
+    q = torch.randn(b, s, h, d, generator=g, device=dev).mul_(2).bfloat16()
+    k = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    v = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    plain = lambda: by_frame(K6.flash_attention_plain, q, k, v, scale=d ** -0.5)  # noqa: E731
+    out = K6.flash_attention(q, k, v, scale=d ** -0.5)
+    err = errors(out, plain())
+    full = dict(label="path 28x9216x5x64", ms=cuda_ms(lambda: K6.flash_attention(
+                    q, k, v, scale=d ** -0.5), iters=5),
+                plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                library_ms=sdpa_flash_ms(*(t.view(b, s, h * d) for t in (q, k, v)), h, d ** -0.5),
+                **err, **attention_bound(b, s, s, h, d, False, False))
+    log(f"[K6] {full['label']} (plain version frame by frame): max_abs={err['max_abs']:.3e} "
+        f"scaled={err['scaled']:.3e} rel={err['rel']:.3e} kernel={full['ms']:.3f} ms "
+        f"({4.0 * b * h * s * s * d / full['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{full['bound_ms'] / full['ms']:.1%} of the {full['bound_ms']:.3f} ms bound, "
+        f"{full['bound_by']}) sdpa(flash)={full['library_ms']:.3f} ms "
+        f"plain={full['plain_ms']:.2f} ms | {card}")
+    if not (err["scaled"] <= K6_TOL["scaled"] and err["rel"] <= K6_TOL["rel"]):
+        raise AssertionError(f"K6 {full['label']} disagrees with its plain version: {err}")
+    RESULTS["k6_path_call"] = full
+    del q, k, v, out
+
+    def run_broken():
+        res = {}
+        for label, (q, k, v, args, want) in inputs.items():
+            res[label] = errors(K6.flash_attention(q, k, v, **args), want)
+            torch.cuda.synchronize()
+        return res
+
+    broken = broken_copy("k6", K6_BREAK, run_broken)
+    for label, err in broken.items():
+        log(f"[K6 broken: no running-max rescale] {label}: rel={err['rel']:.3e} "
+            f"scaled={err['scaled']:.3e} | {card}")
+        if err["scaled"] <= K6_TOL["scaled"] and err["rel"] <= K6_TOL["rel"]:
+            raise AssertionError(f"the broken K6 passes the limits at {label}: {err}")
+    RESULTS["k6_broken"] = broken
+    return full
 
 
 def check_k3(card):
@@ -921,6 +1047,168 @@ def run_13b_w8(card):
     release(pipe)
 
 
+SVD_TINY = dict(
+    unet=dict(in_channels=8, out_channels=4, block_out_channels=(64, 128), layers_per_block=1,
+              cross_attention_dim=64, num_attention_heads=(1, 2), addition_time_embed_dim=8,
+              projection_class_embeddings_input_dim=24),
+    vae=dict(block_out_channels=(32, 64, 64, 64), layers_per_block=1),
+    clip=dict(hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+              projection_dim=64))
+
+
+def check_svd_slice(card):
+    """The tiny SVD slice on the card (bf16, kernels) against the same
+    weights on the CPU (plain versions), with the same injected noise: a
+    384x384 image, 4 frames, 7 steps.  At 48x48 latents the UNet's level 0
+    (2304 tokens, one head of 64) takes K6 three times per forward and its
+    mid block (576 tokens, two heads) K1 once.  Two requests, each against
+    the CPU f32 run, the video within the slice's PSNR:
+    - guidance 1 (no CFG): latent rel within the slice limit;
+    - guidance 1 -> 3 (CFG, the UNet at batch 8): latent rel within
+      ``SVD_CFG_DRIFT`` times the drift of the CPU's own bf16 run of the
+      plain versions (launching no kernel) from the same f32 run."""
+    from candle_video_tpu_torch.models.svd import clip as C
+    from candle_video_tpu_torch.models.svd import configs as F
+    from candle_video_tpu_torch.models.svd import pipeline as SP
+    from candle_video_tpu_torch.models.svd import unet as U
+    from candle_video_tpu_torch.models.svd import vae as V
+    from candle_video_tpu_torch.ops.kernels import _build
+
+    cfg = F.SvdConfig(unet=F.SvdUnetConfig(**SVD_TINY["unet"]),
+                      vae=F.SvdVaeConfig(**SVD_TINY["vae"]),
+                      clip=F.ClipEncoderConfig(**SVD_TINY["clip"]))
+    g = torch.Generator().manual_seed(3)
+    f32 = SP.SvdPipeline(cfg, U.init_random(cfg.unet, "cpu", torch.float32, g),
+                         V.init_random(cfg.vae, "cpu", torch.float32, g),
+                         C.init_random(cfg.clip, "cpu", torch.float32, g))
+    mods = (f32.unet, f32.vae, f32.clip)
+    bf16 = SP.SvdPipeline(cfg, *(copy.deepcopy(m).to(torch.bfloat16) for m in mods))
+    gpu = SP.SvdPipeline(cfg, *(copy.deepcopy(m).to("cuda", torch.bfloat16) for m in mods))
+    frames, steps = 4, 7
+    image = torch.rand(1, 3, 384, 384, generator=g) * 2 - 1
+    noise = dict(image_noise=torch.randn(image.shape, generator=g),
+                 latent_noise=torch.randn(frames, 4, 48, 48, generator=g))
+    to255 = lambda v: (v.clamp(-1, 1) + 1.0) * 127.5  # noqa: E731
+
+    def run(pipe, inf):
+        lat = SP.generate(pipe, image, inf, output_type="latent", **noise)
+        video = V.decode(pipe.vae, lat, frames, chunk_size=inf.decode_chunk_size)
+        return lat.float().cpu(), to255(video.float().cpu())
+
+    def compare(got, want):
+        rel = ((got[0] - want[0]).norm() / want[0].norm()).item()
+        return dict(latent_rel=rel, video_psnr=psnr(got[1], want[1]))
+
+    rows = {}
+    for name, gmax in (("no CFG", 1.0), ("CFG 1->3", 3.0)):
+        inf = SP.SvdInferenceConfig(num_frames=frames, num_inference_steps=steps,
+                                    max_guidance_scale=gmax)
+        _build.reset_launches()
+        card_run = run(gpu, inf)
+        launches = dict(_build.LAUNCHES)
+        want = {"flash_attention": 3 * steps, "flash_attention_packed": steps}
+        if any(launches.get(k, 0) != n for k, n in want.items()):
+            raise AssertionError(f"tiny SVD slice ({name}) launches {launches}, want {want}")
+        cpu_f32, cpu_bf16 = run(f32, inf), run(bf16, inf)
+        pairs = {"card vs CPU f32": compare(card_run, cpu_f32),
+                 "card vs CPU bf16": compare(card_run, cpu_bf16),
+                 "CPU bf16 vs CPU f32": compare(cpu_bf16, cpu_f32)}
+        held, drift = pairs["card vs CPU f32"], pairs["CPU bf16 vs CPU f32"]["latent_rel"]
+        limit = SLICE_TOL["latent_rel"] if gmax == 1.0 else SVD_CFG_DRIFT * drift
+        log(f"[slice] tiny SVD i2v 384x384x{frames} {steps} steps, {name}, card bf16 kernels: "
+            + "; ".join(f"{k}: latent rel={v['latent_rel']:.3e} PSNR={v['video_psnr']:.2f} dB"
+                        for k, v in pairs.items())
+            + f" (held: card vs CPU f32, latent rel <= {limit:.3e}) launches={launches} | {card}")
+        if not (held["latent_rel"] <= limit and held["video_psnr"] >= SLICE_TOL["video_psnr"]):
+            raise AssertionError(f"the tiny SVD slice ({name}) disagrees with the CPU f32 run: "
+                                 f"{held}, latent limit {limit}")
+        rows[name] = dict(pairs, latent_limit=limit, launches=launches)
+    RESULTS["small_slice_svd"] = rows
+
+
+def run_svd(card, steps: int = 25):
+    """SVD's published request on random bf16 weights from a seed: a seeded
+    random 576x1024 image, 14 frames at fps 7, motion bucket 127, guidance
+    1 -> 3 (CFG: the UNet runs at batch 28).  A 2-step warm-up request, then
+    one of ``steps`` steps with per-stage times, the peaks before and during
+    the decode, and exact launch counts: per UNet forward 5 K6 (level 0:
+    2 in down block 0, 3 in up block 3) and 10 K1 (levels 1 and 2)."""
+    from candle_video_tpu_torch.models.svd import clip as C
+    from candle_video_tpu_torch.models.svd import pipeline as SP
+    from candle_video_tpu_torch.models.svd import unet as U
+    from candle_video_tpu_torch.models.svd import vae as V
+    from candle_video_tpu_torch.models.svd.configs import SvdConfig
+    from candle_video_tpu_torch.ops.kernels import _build
+
+    cfg = SvdConfig()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    pipe = SP.SvdPipeline(cfg, U.init_random(cfg.unet, "cuda", torch.bfloat16, g),
+                          V.init_random(cfg.vae, "cuda", torch.bfloat16, g),
+                          C.init_random(cfg.clip, "cuda", torch.bfloat16, g))
+    torch.cuda.synchronize()
+    gib = dict(unet=resident_gib(pipe.unet), clip=resident_gib(pipe.clip),
+               vae=resident_gib(pipe.vae))
+    log(f"[svd] built full-size random-init SVD in {time.perf_counter() - t0:.2f} s: resident "
+        f"UNet {gib['unet']:.2f} GiB, CLIP {gib['clip']:.2f} GiB, VAE {gib['vae']:.2f} GiB | "
+        f"{card}")
+    image = torch.rand(1, 3, 576, 1024, generator=g, device="cuda") * 2 - 1
+    per_step = {"flash_attention": 5, "flash_attention_packed": 10}
+    others = ("flash_attention_packed_long", "w8_matmul", "w4_matmul", "ring_chunk_update")
+    decode, peaks = V.decode, {}
+
+    def measured_decode(*a, **kw):
+        torch.cuda.synchronize()
+        peaks["before_decode"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = decode(*a, **kw)
+        torch.cuda.synchronize()
+        peaks["decode"] = torch.cuda.max_memory_allocated()
+        return out
+
+    runs = []
+    for name, n in (("warm-up", 2), ("request", steps)):
+        times: dict = {}
+        inf = SP.SvdInferenceConfig(num_inference_steps=n)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        V.decode = measured_decode
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            video = SP.generate(pipe, image, inf, stage_times=times)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            V.decode = decode
+        launches = dict(_build.LAUNCHES)
+        want = {k: c * n for k, c in per_step.items()} | dict.fromkeys(others, 0)
+        if tuple(video.shape) != (14, 3, 576, 1024) or not torch.isfinite(video).all():
+            raise AssertionError(f"svd {name}: video {tuple(video.shape)} or non-finite values")
+        if any(launches.get(k, 0) != c for k, c in want.items()):
+            raise AssertionError(f"svd {name}: launch counts {launches}, want {want}")
+        step_ms = [1e3 * s for s in times["unet_steps"]]
+        row = dict(request=name, steps=n, wall_s=wall, clip_encode_s=times["clip_encode"],
+                   vae_encode_s=times["vae_encode"], unet_step_ms=step_ms,
+                   unet_step_mean_ms=statistics.mean(step_ms),
+                   unet_step_median_ms=statistics.median(step_ms),
+                   vae_decode_s=times["vae_decode"],
+                   peak_before_decode_gib=peaks["before_decode"] / 2**30,
+                   peak_decode_gib=peaks["decode"] / 2**30, launches=launches,
+                   video_mean=video.float().mean().item(), video_std=video.float().std().item())
+        log(f"[svd] {name} 576x1024x14 {n} steps: wall={wall:.3f} s clip={row['clip_encode_s'] * 1e3:.1f} ms "
+            f"vae_encode={row['vae_encode_s'] * 1e3:.1f} ms unet step mean="
+            f"{row['unet_step_mean_ms']:.1f} ms median={row['unet_step_median_ms']:.1f} ms "
+            f"decode={row['vae_decode_s']:.3f} s peak {row['peak_before_decode_gib']:.2f} GiB "
+            f"before the decode, {row['peak_decode_gib']:.2f} GiB in it; launches={launches} "
+            f"video mean={row['video_mean']:.3f} std={row['video_std']:.3f} | {card}")
+        runs.append(row)
+        del video
+    RESULTS["e2e_svd"] = dict(resident_gib=gib, runs=runs)
+    release(pipe)
+    return runs[-1]["launches"]
+
+
 def run_cli(card):
     from candle_video_tpu_torch import cli
 
@@ -975,6 +1263,9 @@ def main() -> int:
     launches_13b = run_13b_w4(card)
     run_13b_w8(card)
     run_cli(card)
+    k6 = check_k6(card)
+    check_svd_slice(card)
+    launches_svd = run_svd(card)
 
     def entry(name, source, replaces, launched, row):
         return dict(name=name, route="cuda", source=f"candle_video_tpu_torch/csrc/{source}",
@@ -994,6 +1285,8 @@ def main() -> int:
               launches_13b["w4_matmul"], k4),
         entry("ring_chunk_update", "flash_attention_packed.cu", "ring_chunk.py:91",
               launches_sp["ring_chunk_update"], k5),
+        entry("flash_attention", "flash_attention_packed.cu", "flash_attention.py:175",
+              launches_svd["flash_attention"], k6),
     ]
     RESULTS.update(card=card, kernels=kernels)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -17,6 +17,7 @@ neither ``jax`` nor ``candle_video_tpu`` was imported, runs with one torch
 thread and meets the others through a ``FileStore``.
 """
 
+import gc
 import os
 import pickle
 import subprocess
@@ -85,7 +86,30 @@ def rank_main(rank, world, store, job_file, out_dir, module=MODULE):
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
     finally:
+        # The cached meshes hold the sub-groups: dropped first, their gloo
+        # threads end inside destroy_process_group.  Left alive, the groups
+        # are destroyed during interpreter shutdown, which now and then
+        # aborts the rank ("terminate called without an active exception")
+        # after its results were written.
+        _MESHES.clear()
         dist.destroy_process_group()
+        gc.collect()
+        assert _gloo_threads() == [], _gloo_threads()
+
+
+def _gloo_threads():
+    """The names of this process's gloo threads ("gloo_tcp_loop",
+    "pt_gloo_runloop") that are still running."""
+    names = []
+    for task in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{task}/comm") as f:
+                name = f.read().strip()
+        except FileNotFoundError:  # the thread ended after the listing
+            continue
+        if "gloo" in name:
+            names.append(name)
+    return names
 
 
 def run_world(tmp_path, world, jobs, module=MODULE):
@@ -96,7 +120,8 @@ def run_world(tmp_path, world, jobs, module=MODULE):
     store = tmp_path / f"store{world}"
     code = (f"import sys; sys.path.insert(0, {TESTS!r}); import {module} as T; "
             f"T.rank_main(*sys.argv[1:], module={module!r})")
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", PYTHONWARNINGS="ignore")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", PYTHONWARNINGS="ignore",
+               PYTHONFAULTHANDLER="1")  # a rank that dies shows where
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world), str(store),
                                str(job_file), str(tmp_path)], cwd=REPO, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
