@@ -1,32 +1,25 @@
-// Lane-packed flash attention for Hopper (bf16 in, f32 softmax, bf16 out).
+// Lane-packed flash attention on mma.sync (bf16 in, f32 softmax, bf16 out):
+// the template of K2, K5 and K6.  K1, the one-pass kernel this template was
+// first written for, is redesigned for Hopper in flash_attention_hopper.cu
+// (wgmma fed by a TMA ring); these three move onto that design next.
 //
-// Replaces: candle_video_tpu/ops/pallas/flash_attention_packed.py,
-//   flash_attention_packed (one-pass kernel `_kernel`), the TPU kernel that
-//   carries every LTX DiT self-attention.  Same contract: q/k/v in their
-//   natural projection layout [B, S, H*D] (a head is a D-wide column slice,
-//   addressed by stride, never transposed), optional additive f32 key bias
-//   [B, 1, 1, K], optional interleaved RoPE applied to q inside the kernel
-//   from full-width f32 tables [1|B, S, H*D] (k arrives rotated), ragged
-//   S and K masked.
+// The template's contract is K1's: q/k/v in their natural projection layout
+//   [B, S, H*D] (a head is a D-wide column slice, addressed by stride, never
+//   transposed), optional additive f32 key bias [B, 1, 1, K], optional
+//   interleaved RoPE applied to q inside the kernel from full-width f32
+//   tables [1|B, S, H*D] (k arrives rotated), ragged S and K masked.
 //
-// What bounds it on this card: arithmetic.  At the 2B shape (S = K = 4992,
-//   H = 32, D = 64) one layer is 4*S*K*D*H = 204 GFLOP, 5.7 TFLOP per
-//   denoise step; at the dense bf16 tensor-core peak that is a floor of
-//   about 6 ms per step, while q/k/v/out are only 4 * 20 MB of traffic.
-//
-// What the design does about it: both products run on the tensor cores
-//   (mma.sync m16n8k16 bf16 -> f32) with every intermediate in registers.
-//   One CTA of 8 warps owns a 128-row q tile of one (batch, head); each warp
-//   owns 16 rows, keeps its rotated q as A fragments, its 16 x 64 score tile
-//   and its 16 x D output accumulator in registers, and runs the online
-//   (running-max) softmax there: no [rows, K] score tile is ever stored, so
-//   K1 needs no Cauchy-Schwarz fixed shift (K2 below keeps it).  p is
-//   rounded to bf16 and re-used directly as the A operand of P*V, as on the
-//   TPU.  K/V stream through shared memory in 64-key tiles, double-buffered
-//   with cp.async so the next tile's loads overlap this tile's math;
-//   fragments come from shared memory by ldmatrix (V transposed on load),
-//   with padded rows so those loads are free of bank conflicts.  Not yet:
-//   wgmma, TMA, warp specialisation.
+// Its design: both products run on the tensor cores (mma.sync m16n8k16 bf16
+//   -> f32) with every intermediate in registers.  One CTA of 8 warps owns a
+//   128-row q tile of one (batch, head); each warp owns 16 rows, keeps its
+//   rotated q as A fragments, its 16 x 64 score tile and its 16 x D output
+//   accumulator in registers, and runs the softmax there: no [rows, K] score
+//   tile is ever stored.  p is rounded to bf16 and re-used directly as the A
+//   operand of P*V, as on the TPU.  K/V stream through shared memory in
+//   64-key tiles, double-buffered with cp.async so the next tile's loads
+//   overlap this tile's math; fragments come from shared memory by ldmatrix
+//   (V transposed on load), with padded rows so those loads are free of bank
+//   conflicts.
 //
 // K2, the long-sequence kernel, is the same template with FIXED = true.
 // Replaces: candle_video_tpu/ops/pallas/flash_attention_packed.py:392,
@@ -43,7 +36,7 @@
 // What bounds it: arithmetic, as K1.  At the 257-frame path shape (S = K =
 //   12672, H = 32, D = 64) one call is 4*S*K*D*H = 1.316 TFLOP, 1.33 ms at
 //   the dense bf16 tensor-core peak; q/k/v/out are 4 * 52 MB.  The design is
-//   K1's (the TPU's sequential key-block grid axis is the loop over 64-key
+//   the template's (the TPU's sequential key-block grid axis is the loop over 64-key
 //   tiles inside the CTA); the fixed shift removes, per tile, the row max,
 //   its two shuffles, one exp2 per row and D/2 multiplies per thread.
 //
@@ -57,7 +50,7 @@
 //   [B, H, Sq], unnormalised output acc f32 [B, Sq, H*D], updated in place.
 //   Each CTA seeds its registers from the incoming (m, l, acc) of its 128
 //   rows of one head instead of (-1e30, 0, 0), streams the chunk's key tiles
-//   with K1's loop (no RoPE, no bias, padded keys masked) and writes the
+//   with the template's loop (no RoPE, no bias, padded keys masked) and writes the
 //   state back unnormalised.  The TPU kernel takes the chunk's row max
 //   first and merges once; this carries the running max across tiles, so p
 //   is rounded to bf16 against another shift (K1's limits hold).  m stays
@@ -78,7 +71,7 @@
 //   clipped), an optional f32 key bias [B, 1, 1, K], padded keys at -1e30, p
 //   rounded to bf16 before P*V, f32 accumulation, bf16 out.  It reads
 //   [B, S, H, D] as it lies, which is K1's [B, S, H*D] with any H: the
-//   TPU's [B*H, S, D] transposes were a tiling choice and are gone.  K1's
+//   TPU's [B*H, S, D] transposes were a tiling choice and are gone.  The
 //   q-rotation code is compiled out rather than skipped at run time.
 // What bounds it: arithmetic.  At the SVD path shape (B = 28 frames of a
 //   CFG pair, S = K = 72*128 = 9216, H = 5, D = 64) one call is 3.04 TFLOP,
@@ -146,7 +139,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// FIXED = false: K1, online (running-max) softmax.  FIXED = true: K2, the
+// FIXED = false: online (running-max) softmax.  FIXED = true: K2, the
 // shift is bounds[b, h / (128 / D)] for every key tile.  RING = true: K5,
 // K1's online softmax seeded from and written back to the carried state
 // (m_st, l_st [B, H, S], acc_st [B, S, H*D], f32) instead of out.  ROPE =
@@ -425,21 +418,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 }
 
 }  // namespace
-
-extern "C" int cvt_flash_attention_packed(const void* q, const void* k, const void* v,
-                                          const void* bias, const void* cos_t,
-                                          const void* sin_t, void* out, int B, int S, int K,
-                                          int H, int D, long long rope_bstride, float scale,
-                                          void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return (int)launch<64, false>(q, k, v, bias, cos_t, sin_t, nullptr, out, B, S, K, H,
-                                  rope_bstride, scale, st);
-  if (D == 128)
-    return (int)launch<128, false>(q, k, v, bias, cos_t, sin_t, nullptr, out, B, S, K, H,
-                                   rope_bstride, scale, st);
-  return (int)cudaErrorInvalidValue;
-}
 
 extern "C" int cvt_flash_attention_packed_long(const void* q, const void* k, const void* v,
                                                const void* bias, const void* cos_t,

@@ -3,8 +3,13 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started at
 once, and the objects are linked into one shared library with a plain C
 interface, at first use, into ``candle_video_tpu_torch/_build/``
-(gitignored).  The library path is keyed on a hash of the sources and the
-flags, so an edited kernel rebuilds and an unchanged one loads from disk.
+(gitignored).  The library path is keyed on a hash of the sources, the
+headers they share (``csrc/*.cuh``) and the flags, so an edited kernel
+rebuilds and an unchanged one loads from disk.  The TMA tensor maps are
+encoded through ``cudaGetDriverEntryPoint``, so nothing links ``-lcuda``.
+``ptxas`` reports every kernel's registers and spills (``-Xptxas -v``); the
+report of each source is kept beside the library and read by
+``ptxas_report``.
 
 Each kernel wrapper adds one to ``LAUNCHES[<kernel name>]`` where it launches
 its kernel, and nowhere else: a run reads the counts to prove that its main
@@ -17,6 +22,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -38,9 +44,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, bias, cos, sin, out, B, S, K, H, D, rope_batch_stride, scale,
-    # stream
+    # consumers, stages, shared memory bytes, stream
     "cvt_flash_attention_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, ctypes.c_longlong, _F, _P],
+                                   _I, _I, ctypes.c_longlong, _F, _I, _I, _I, _P],
     # q, k, v, bias, cos, sin, shift [B, G], out, B, S, K, H, D,
     # rope_batch_stride, scale, stream
     "cvt_flash_attention_packed_long": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -58,9 +64,10 @@ _SIGNATURES = {
     "cvt_w4_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x_q, s_x, w_q [N, K], s_w, bias (f32 or null), out, M, K, N, stream
     "cvt_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x (NDHWC), w [27, O, C], bias (f32 or null), out, B, T, H, W, C, O,
-    # time mode, stream
-    "cvt_conv3d_igemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x (NDHWC), w [27, O, C], bias (f32 or null), out, workspace (f32 or
+    # null), B, T, H, W, C, O, time mode, bh, bw, bn, split, stream
+    "cvt_conv3d_igemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
 }
 
 
@@ -84,7 +91,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -106,9 +113,11 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
     for src, _, proc in jobs:
-        _, err = proc.communicate()
+        said, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+        else:
+            (out.parent / f"{src.stem}.ptxas.txt").write_text(said + err)
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp = out.with_suffix(f".{pid}.tmp")
@@ -118,6 +127,30 @@ def build() -> Path:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def parse_ptxas(text: str) -> list:
+    """``-Xptxas -v`` output -> one dict per entry function: its mangled
+    name, registers, and spill store and load bytes."""
+    rows, entry = [], None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = dict(entry=m.group(1))
+        elif entry is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            entry.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif entry is not None and (m := re.search(r"Used (\d+) registers", line)):
+            entry["registers"] = int(m.group(1))
+            rows.append(entry)
+            entry = None
+    return rows
+
+
+def ptxas_report() -> dict:
+    """Source file name -> ``parse_ptxas`` of its build (built if missing)."""
+    out = build()
+    return {src.name: parse_ptxas((out.parent / f"{src.stem}.ptxas.txt").read_text())
+            for src in _sources()}
 
 
 def lib():

@@ -15,9 +15,11 @@ the kernel (k arrives rotated) and ragged S/K masked.
 - ``flash_attention_packed`` routes as the JAX function does: K2 once the
   key length rounded up to 128 exceeds ``_ONEPASS_KP_MAX``, else K1.
 
-Both kernels are ``csrc/flash_attention_packed.cu`` (one template); the
-source note there says what bounds them and how the design answers.  CPU
-tensors take the plain versions; CUDA tensors launch a kernel or raise.
+K1 is ``csrc/flash_attention_hopper.cu`` (wgmma fed by a TMA ring; its
+launch parameters are ``k1_launch_params``), K2 the ``mma.sync`` template of
+``csrc/flash_attention_packed.cu``; each source note says what bounds the
+kernel and how its design answers.  CPU tensors take the plain versions;
+CUDA tensors launch a kernel or raise.
 """
 
 from __future__ import annotations
@@ -37,6 +39,32 @@ _BOUND_CLIP = 40.0
 # above this padded key length the JAX package leaves the one-pass kernel
 # for the long one; the port routes at the same point
 _ONEPASS_KP_MAX = 8192
+# the card's limit on one block's dynamic shared memory (H100: 227 KB)
+SMEM_LIMIT = 232448
+
+
+def k1_launch_params(head_dim: int) -> dict:
+    """K1's launch at head width ``head_dim``, decided here and passed to
+    the kernel (``csrc/flash_attention_hopper.cu``), which refuses a
+    configuration it was not built for: ``consumers`` warpgroups of 64 q
+    rows (three at D = 64, two at D = 128) and a producer per CTA, and a
+    ring of ``stages`` slots of one K and one V tile.  A tile is
+    ``block_k`` = 128 keys, the n of the kernel's QKᵀ instruction (wgmma
+    m64n128k16), loaded by TMA as ``head_dim / 64`` boxes of ``box``
+    elements (innermost first: 64 columns of ``[B, K, H·D]``, 128 keys, one
+    batch row) with 128-byte rows under the 128-byte swizzle.
+    ``smem_bytes`` is q, the ring, its full and empty barriers, and 1024
+    bytes to align the base."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head dim {head_dim} not in {HEAD_DIMS}")
+    consumers = 3 if head_dim == 64 else 2
+    stages, block_q, block_k = 3, 64 * consumers, 128
+    box = (64, block_k, 1)
+    tile_bytes = block_k * head_dim * 2
+    smem = 1024 + block_q * head_dim * 2 + stages * 2 * tile_bytes + 2 * stages * 8
+    return dict(consumers=consumers, threads=128 * (consumers + 1), block_q=block_q,
+                block_k=block_k, stages=stages, box=box, box_inner_bytes=box[0] * 2,
+                boxes_per_tile=head_dim // 64, smem_bytes=smem)
 
 
 def packed_viable(s_len: int, kv_len: int, num_heads: int, head_dim: int) -> bool:
@@ -181,14 +209,17 @@ def flash_attention_packed_onepass(q, k, v, *, num_heads: int, scale: float, bia
     _check(q, k, v, num_heads, bias, rope_q)
     b, s, hd = q.shape
     kv = k.shape[1]
+    d = hd // num_heads
+    launch = k1_launch_params(d)
     out = torch.empty_like(q)
     cos, sin = rope_q if rope_q is not None else (None, None)
     rope_bstride = 0 if cos is None or cos.shape[0] == 1 else s * hd
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _build.lib().cvt_flash_attention_packed(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias), ptr(cos), ptr(sin),
-        out.data_ptr(), b, s, kv, num_heads, hd // num_heads, rope_bstride,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), b, s, kv, num_heads, d, rope_bstride, float(scale),
+        launch["consumers"], launch["stages"], launch["smem_bytes"],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1

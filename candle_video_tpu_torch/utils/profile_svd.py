@@ -20,11 +20,12 @@ import torch
 
 from .profile_dit import cuda_ms, kernel_ms
 
-# kernel-name fragments -> kind, first match wins; K1 and K6 are the
-# template instances of csrc/flash_attention_packed.cu (the last flag is
-# ROPE); cuDNN's convolutions are implicit GEMMs named "fprop"
+# kernel-name fragments -> kind, first match wins; K6 is a template
+# instance of csrc/flash_attention_packed.cu (the last flag is ROPE), K1
+# csrc/flash_attention_hopper.cu; cuDNN's convolutions are implicit GEMMs
+# named "fprop"
 KINDS = (("K6", "flash_attention_packed_kernel<64, false, false, false>"),
-         ("K1", "flash_attention_packed_kernel<64, false, false, true>"),
+         ("K1", "flash_attention_hopper_kernel"),
          ("conv", "fprop"), ("conv", "conv"), ("conv", "cudnn"),
          ("matmul", "gemm"), ("matmul", "nvjet"), ("matmul", "cutlass"))
 

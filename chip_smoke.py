@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``candle_video_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the main paths' shapes (K2,
-K5, K6, K7 and K8 also as copies broken on purpose, which must fail), then
+holds each against its plain PyTorch version at the main paths' shapes (K1,
+K2, K5, K6, K7 and K8 also as copies broken on purpose, which must fail), then
 drives on random weights, checking the outputs and the kernels' launch
 counts of every request:
 
@@ -205,13 +205,39 @@ def by_frame(plain, q, k, v, bias=None, **kw):
                       for i in range(q.shape[0])])
 
 
+# the sources whose kernels must keep every value in registers
+NO_SPILLS = ("flash_attention_hopper.cu", "conv3d_igemm.cu")
+
+
+def check_ptxas(card):
+    """Every kernel's registers and spill bytes as ``ptxas -v`` reported
+    them at the build; K1's and K8's kernels must not spill."""
+    from candle_video_tpu_torch.ops.kernels import _build
+
+    report = _build.ptxas_report()
+    for src, entries in report.items():
+        for e in entries:
+            log(f"[ptxas] {src}: {e['entry']}: {e['registers']} registers, "
+                f"{e['spill_stores']} B spill stores, {e['spill_loads']} B spill loads")
+            if src in NO_SPILLS and e["spill_stores"] + e["spill_loads"]:
+                raise AssertionError(f"{src}: {e['entry']} spills registers: {e}")
+        if src in NO_SPILLS and not entries:
+            raise AssertionError(f"{src}: ptxas reported no entry function")
+    RESULTS["ptxas"] = report
+
+
 def check_k1(card):
+    """K1 against its plain version at the paths' shapes (2B, 13B, the SVD
+    levels) and at ragged edges: K = 65 and K = 129 (one key past a 128-key
+    tile) catch a missing padded-key mask, S = 4992 + 64 a ragged q tile.
+    Then the broken copy (the running-max rescale of O dropped), which must
+    fail every case of more than one key tile."""
     from candle_video_tpu_torch.ops.kernels import flash_attention_packed as K1
     from candle_video_tpu_torch.ops.rope import apply_rotary_emb, rope_cos_sin
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    rows = []
+    rows, inputs = [], {}
     # (label, B, S, K, H, D, bias, rope): the path's shape first
     cases = [("path 1x4992x32x64 rope", 1, 4992, 4992, 32, 64, False, True),
              ("13B path 1x4992x32x128 rope", 1, 4992, 4992, 32, 128, False, True),
@@ -219,6 +245,9 @@ def check_k1(card):
              ("D=128 S=1000 K=1031 bias", 2, 1000, 1031, 16, 128, True, False),
              # 63 of the last tile's 64 key slots are padding: a missing mask fails
              ("K=65 bias padded tile", 2, 200, 65, 8, 64, True, False),
+             # one key past a 128-key tile: the last tile is 127 slots of padding
+             ("K=129 bias one key past a tile", 2, 300, 129, 8, 64, True, False),
+             ("ragged S=K=4992+64 rope", 1, 5056, 5056, 32, 64, False, True),
              # the SVD UNet's levels 1 and 2 at 576x1024x14 with CFG (batch 28)
              ("SVD level 1 28x2304x10x64", 28, 2304, 2304, 10, 64, False, False),
              ("SVD level 2 28x576x20x64", 28, 576, 576, 20, 64, False, False)]
@@ -261,8 +290,30 @@ def check_k1(card):
             log(f"[K1] {label}: sdpa={row['library_ms']:.3f} ms bound={row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}) | {card}")
         rows.append(row)
+        if kv > 128 and b == 1 or label.startswith("K=129"):
+            inputs[label] = (q, k, v, args, want)
     RESULTS["k1"] = rows
+
+    def run_broken():
+        res = {}
+        for label, (q, k, v, args, want) in inputs.items():
+            res[label] = errors(K1.flash_attention_packed(q, k, v, **args), want)
+            torch.cuda.synchronize()
+        return res
+
+    broken = broken_copy("k1", K1_BREAK, run_broken, source="flash_attention_hopper.cu")
+    for label, err in broken.items():
+        log(f"[K1 broken: no running-max rescale] {label}: rel={err['rel']:.3e} "
+            f"scaled={err['scaled']:.3e} | {card}")
+        if err["scaled"] <= K1_TOL["scaled"] and err["rel"] <= K1_TOL["rel"]:
+            raise AssertionError(f"the broken K1 passes the limits at {label}: {err}")
+    RESULTS["k1_broken"] = broken
     return rows[0]
+
+
+# the broken K1: O is no longer rescaled when the running max grows, so the
+# key tiles' partial sums are added against different shifts
+K1_BREAK = ("o[r] *= alpha[(r >> 1) & 1];", "o[r] *= 1.f;")
 
 
 # the broken K2: the shift moves from tile to tile (m + tile index), so the
@@ -762,37 +813,69 @@ def check_k7(card):
 # outputs differ by one bf16 ulp where a sum lands near a rounding boundary,
 # and more only where the sum cancels to a small value: K1's limits.
 K8_TOL = dict(scaled=8e-3, rel=4e-3)
-# the broken K8: every tap reads the centre column (the dw shift dropped)
-K8_BREAK = ("const int dt = tap / 9, dh = (tap / 3) % 3, dw = tap % 3;",
-            "const int dt = tap / 9, dh = (tap / 3) % 3, dw = 1;")
+# the broken K8: every tap's box starts at the centre column (the dw shift
+# dropped from the box's column coordinate)
+K8_BREAK = ("tma_load_4d(as, &xmap, &full[s], c0, w0 + dw - 1,",
+            "tma_load_4d(as, &xmap, &full[s], c0, w0,")
+
+
+def k8_kernel_only(x, w27, bias, kw):
+    """A launcher of K8 alone on a pre-packed weight, its output and
+    workspace made once: what the wrapper adds (checks, plan, packing-cache
+    lookup, allocation) left out."""
+    from candle_video_tpu_torch.ops.kernels import _build
+    from candle_video_tpu_torch.ops.kernels import conv3d_igemm as K8
+
+    b, c, t, h, w = x.shape
+    o = w27.shape[1]
+    mode = K8._mode(**kw)
+    t_out = t - 2 if mode == "valid" else t
+    plan = K8.plan_conv3d(b, t_out, h, w, c, o, K8._sms(x.device.index))
+    y = torch.empty((b, o, t_out, h, w), dtype=torch.bfloat16, device=x.device,
+                    memory_format=torch.channels_last_3d)
+    ws = None
+    if plan["split"] > 1:
+        ws = torch.empty((plan["split"], b * t_out * h * w, o), dtype=torch.float32,
+                         device=x.device)
+    bias = bias.float().contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = _build.lib().cvt_conv3d_igemm
+    args = (x.data_ptr(), w27.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, t, h, w, c, o, K8._MODES[mode],
+            plan["bh"], plan["bw"], plan["bn"], plan["split"], stream)
+    return lambda: _build.check(fn(*args), K8.NAME), plan
 
 
 def check_k8(card):
     """K8 against its plain version at the 2B decoder's four widths at 97
-    frames (the tail, up block 1, up block 0, the mid block), non-causal as
-    the 0.9.8 decoder runs and causal, plus a ``time_pad="valid"`` case as
-    the streamed decode calls it; input and output channels last.  Timed
-    beside the plain version and cuDNN's bf16 ``F.conv3d`` on the same
-    time-padded channels-first input (the default route).  Then the broken
-    copy, which must fail."""
+    frames (the tail, up block 1, up block 0, the mid block, whose plan
+    splits the K-steps), non-causal as the 0.9.8 decoder runs and causal, a
+    ``time_pad="valid"`` case as the streamed decode calls it, and B = 2 on
+    a 13x20 frame that the plan's rectangle does not divide; input and
+    output channels last.  ``ms`` is the wrapper call, as for every kernel
+    (it packs each weight once and keeps the copy); ``kernel_ms`` the kernel
+    alone on a pre-packed weight; both beside the plain version and cuDNN's bf16 ``F.conv3d`` on the
+    same time-padded channels-first input (the default route).  Then the
+    broken copy, which must fail."""
     from candle_video_tpu_torch.ops.conv3d import replicate_pad_time
     from candle_video_tpu_torch.ops.kernels import conv3d_igemm as K8
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(9)
     rows, inputs = [], {}
-    # (label, C (= O), T, H, W, causal, time_pad): the tail first
-    cases = [("tail 128ch 97x128x192", 128, 97, 128, 192, False, "edge"),
-             ("tail 128ch 97x128x192 causal", 128, 97, 128, 192, True, "edge"),
-             ("up1 256ch 49x64x96", 256, 49, 64, 96, False, "edge"),
-             ("up1 256ch 49x64x96 causal", 256, 49, 64, 96, True, "edge"),
-             ("up0 512ch 25x32x48", 512, 25, 32, 48, False, "edge"),
-             ("up0 512ch 25x32x48 causal", 512, 25, 32, 48, True, "edge"),
-             ("mid 1024ch 13x16x24", 1024, 13, 16, 24, False, "edge"),
-             ("mid 1024ch 13x16x24 causal", 1024, 13, 16, 24, True, "edge"),
-             ("tail stream chunk 128ch 26x128x192 valid", 128, 26, 128, 192, False, "valid")]
-    for label, c, t, h, w, causal, time_pad in cases:
-        x = torch.randn(1, c, t, h, w, generator=g, device=dev).bfloat16().contiguous(
+    # (label, B, C (= O), T, H, W, causal, time_pad): the tail first
+    cases = [("tail 128ch 97x128x192", 1, 128, 97, 128, 192, False, "edge"),
+             ("tail 128ch 97x128x192 causal", 1, 128, 97, 128, 192, True, "edge"),
+             ("up1 256ch 49x64x96", 1, 256, 49, 64, 96, False, "edge"),
+             ("up1 256ch 49x64x96 causal", 1, 256, 49, 64, 96, True, "edge"),
+             ("up0 512ch 25x32x48", 1, 512, 25, 32, 48, False, "edge"),
+             ("up0 512ch 25x32x48 causal", 1, 512, 25, 32, 48, True, "edge"),
+             ("mid 1024ch 13x16x24 split-K", 1, 1024, 13, 16, 24, False, "edge"),
+             ("mid 1024ch 13x16x24 causal split-K", 1, 1024, 13, 16, 24, True, "edge"),
+             ("tail stream chunk 128ch 26x128x192 valid", 1, 128, 26, 128, 192, False, "valid"),
+             ("ragged B=2 128ch 5x13x20 causal", 2, 128, 5, 13, 20, True, "edge")]
+    for label, b, c, t, h, w, causal, time_pad in cases:
+        x = torch.randn(b, c, t, h, w, generator=g, device=dev).bfloat16().contiguous(
             memory_format=torch.channels_last_3d)
         wt = (torch.randn(c, c, 3, 3, 3, generator=g, device=dev) * (27 * c) ** -0.5).bfloat16()
         bias = (torch.randn(c, generator=g, device=dev) * 0.1).bfloat16()
@@ -803,6 +886,10 @@ def check_k8(card):
         if not got.is_contiguous(memory_format=torch.channels_last_3d):
             raise AssertionError(f"K8 {label}: output is not channels last")
         err, ulps = errors(got, want), bf16_ulps(got, want)
+        kernel, plan = k8_kernel_only(x, K8.packed_weight(wt), bias, kw)
+        if "split-K" in label and plan["split"] == 1:
+            raise AssertionError(f"K8 {label}: the plan does not split the K-steps")
+        kernel_ms = cuda_ms(kernel, iters=5)
         ms = cuda_ms(lambda: K8.conv3d_igemm(x, wt, bias, **kw), iters=5)
         plain_ms = cuda_ms(lambda: K8.conv3d_igemm_plain(x, wt, bias, **kw), iters=3, warmup=1)
         xp = x.contiguous()
@@ -810,16 +897,21 @@ def check_k8(card):
             xp = replicate_pad_time(xp, 3, causal)
         library_ms = cuda_ms(lambda: F.conv3d(xp, wt, bias, padding=(0, 1, 1)), iters=5)
         t_out = got.shape[2]
-        flops = 2.0 * t_out * h * w * c * c * 27
-        nbytes = 2 * (c * t * h * w + 27 * c * c + c * t_out * h * w) + 4 * c
-        row = dict(label=label, c=c, t=t, h=h, w=w, causal=causal, time_pad=time_pad, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms, bf16_ulps=ulps, **err,
-                   **bound(flops, nbytes))
+        flops = 2.0 * b * t_out * h * w * c * c * 27
+        nbytes = 2 * b * (c * t * h * w + c * t_out * h * w) + 2 * 27 * c * c + 4 * c
+        row = dict(label=label, b=b, c=c, t=t, h=h, w=w, causal=causal, time_pad=time_pad,
+                   ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bf16_ulps=ulps, plan={k: plan[k] for k in ("bh", "bw", "bn", "split",
+                                                              "ctas", "waves")},
+                   **err, **bound(flops, nbytes))
         log(f"[K8] {label}: max_abs={err['max_abs']:.3e} scaled={err['scaled']:.3e} "
-            f"rel={err['rel']:.3e} ulps<={ulps:.0f} kernel={ms:.3f} ms "
+            f"rel={err['rel']:.3e} ulps<={ulps:.0f} wrapper={ms:.3f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s, {row['bound_ms'] / ms:.1%} of the "
-            f"{row['bound_ms']:.3f} ms bound, {row['bound_by']}) cudnn={library_ms:.3f} ms "
-            f"plain={plain_ms:.2f} ms | {card}")
+            f"{row['bound_ms']:.3f} ms bound, {row['bound_by']}) kernel alone={kernel_ms:.3f} ms "
+            f"cudnn={library_ms:.3f} ms (K8/cuDNN {ms / library_ms:.2f} by the wrapper, "
+            f"{kernel_ms / library_ms:.2f} alone) "
+            f"plain={plain_ms:.2f} ms; plan {plan['bh']}x{plan['bw']} BN={plan['bn']} "
+            f"split={plan['split']}, {plan['ctas']} CTAs, {plan['waves']:.2f} waves | {card}")
         if not (err["scaled"] <= K8_TOL["scaled"] and err["rel"] <= K8_TOL["rel"]):
             raise AssertionError(f"K8 {label} disagrees with its plain version: {row}")
         rows.append(row)
@@ -1595,6 +1687,7 @@ def main() -> int:
     path = _build.build()
     log(f"[build] {os.path.relpath(path, REPO)} in {time.perf_counter() - t0:.2f} s")
     _build.lib()
+    check_ptxas(card)
 
     k1 = check_k1(card)
     k2 = check_k2(card)
@@ -1625,7 +1718,7 @@ def main() -> int:
                     library_ms=row["library_ms"])
 
     kernels = [
-        entry("flash_attention_packed", "flash_attention_packed.cu",
+        entry("flash_attention_packed", "flash_attention_hopper.cu",
               "flash_attention_packed.py:543", launches["flash_attention_packed"], k1),
         entry("flash_attention_packed_long", "flash_attention_packed.cu",
               "flash_attention_packed.py:392", launches_long["flash_attention_packed_long"], k2),
@@ -1642,6 +1735,7 @@ def main() -> int:
         entry("conv3d_igemm", "conv3d_igemm.cu", "conv3d_igemm.py:98",
               launches_k8["conv3d_igemm"], k8),
     ]
+    kernels[-1]["kernel_ms"] = k8["kernel_ms"]  # K8 alone, beside its wrapper's ms
     RESULTS.update(card=card, kernels=kernels)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1)

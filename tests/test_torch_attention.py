@@ -135,9 +135,30 @@ def test_kernel_library_is_keyed_on_sources():
     path = _build.library_path()
     assert path.parent.parent == _build.BUILD_DIR
     assert {p.name for p in _build._sources()} == {
-        "flash_attention_packed.cu", "int8_weight_matmul.cu", "int4_weight_matmul.cu",
-        "int8_matmul.cu", "conv3d_igemm.cu"}
+        "flash_attention_packed.cu", "flash_attention_hopper.cu", "int8_weight_matmul.cu",
+        "int4_weight_matmul.cu", "int8_matmul.cu", "conv3d_igemm.cu"}
     assert {"cvt_w8a8_matmul", "cvt_conv3d_igemm"} <= set(_build._SIGNATURES)
+
+
+PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelILi128EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi128EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_Z6reducev' for 'sm_90a'
+ptxas info    : Function properties for _Z6reducev
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 38 registers, used 0 barriers
+"""
+
+
+def test_parse_ptxas_reads_registers_and_spills_per_entry():
+    assert ("-Xptxas", "-v") == _build.NVCC_FLAGS[-2:]
+    assert _build.parse_ptxas(PTXAS) == [
+        dict(entry="_Z6kernelILi128EEvv", spill_stores=0, spill_loads=0, registers=168),
+        dict(entry="_Z6reducev", spill_stores=12, spill_loads=16, registers=38)]
+    assert _build.parse_ptxas("nvcc: nothing compiled\n") == []
 
 
 def test_rope_tables_feed_both_sides(rng):
@@ -272,3 +293,131 @@ def test_dit_forward_long_route_matches_jax(rng, monkeypatch):
     assert len(calls) == cfg["num_layers"]  # every self-attention took K2's route
     mse = float(((got - want) ** 2).mean())
     assert mse < 1e-4, mse
+
+
+# ---------------------------------------------------------------------------
+# K1 on Hopper (csrc/flash_attention_hopper.cu): its launch parameters, the
+# wrapper's refusals, and its tiled log2-domain online softmax emulated in
+# torch against the plain version.
+# ---------------------------------------------------------------------------
+
+# K1 against its plain version on the card (chip_smoke.py): one bf16 ulp
+# elementwise (|d| <= 8e-3 * max(1, |want|)) and rel <= 4e-3
+K1_TOL = dict(scaled=8e-3, rel=4e-3)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k1_launch_params_fit_the_card(d):
+    p = FAP.k1_launch_params(d)
+    assert p["smem_bytes"] <= FAP.SMEM_LIMIT == 232448
+    assert all(1 <= n <= 256 for n in p["box"]) and p["box_inner_bytes"] <= 128
+    assert p["boxes_per_tile"] * p["box"][0] == d and p["box"][1] == p["block_k"]
+    assert p["threads"] == 128 * (p["consumers"] + 1) and p["block_q"] == 64 * p["consumers"]
+    assert p["stages"] in (2, 3)
+    # q, the ring and its barriers, and no byte unaccounted
+    tile = p["block_k"] * d * 2
+    assert p["smem_bytes"] == 1024 + p["block_q"] * d * 2 + p["stages"] * (2 * tile + 16)
+
+
+def test_k1_launch_params_refuse_other_widths():
+    with pytest.raises(ValueError, match="head dim 96"):
+        FAP.k1_launch_params(96)
+
+
+class _OnCard:
+    """A CPU tensor that reports itself on a card: enough of one for the
+    wrapper's input checks, which run before any launch."""
+
+    is_cuda = True
+
+    def __init__(self, t):
+        self._t = t
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+@pytest.mark.parametrize("fault", ["non-contiguous", "misaligned"])
+def test_k1_refuses_misaligned_or_non_contiguous_input(fault):
+    b, s, h, d = 1, 16, 2, 64
+    q = torch.zeros(b, s, h * d, dtype=torch.bfloat16)
+    kv = torch.zeros(b, s, h * d, dtype=torch.bfloat16)
+    if fault == "non-contiguous":
+        bad = torch.zeros(b, h * d, s, dtype=torch.bfloat16).transpose(1, 2)
+    else:  # one bf16 element past a 16-byte boundary
+        bad = torch.zeros(b * s * h * d + 1, dtype=torch.bfloat16)[1:].view(b, s, h * d)
+    assert bad.is_contiguous() == (fault == "misaligned")
+    FAP._check(_OnCard(q), _OnCard(kv), _OnCard(kv), h, None, None)  # the good inputs pass
+    with pytest.raises(ValueError, match="inputs must be contiguous and 16-byte aligned"):
+        FAP._check(_OnCard(q), _OnCard(bad), _OnCard(kv), h, None, None)
+
+
+def test_kernel_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    import shutil
+
+    shutil.copytree(_build.CSRC, tmp_path / "csrc")
+    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    before = _build.library_path()
+    header = tmp_path / "csrc" / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != before
+
+
+def _emulate_k1(q, k, v, num_heads, scale, bias=None, rope_q=None):
+    """K1's schedule in torch: q rotated in f32 and rounded to bf16, 128-key
+    tiles, scores in log2 units ((s·scale + bias)·log2e, keys >= K at -1e30
+    in the last tile), the running (m, l) in f32, p rounded to bf16 for P·V,
+    O rescaled by exp2(m_old - m_new), one divide by l, bf16 out."""
+    from candle_video_tpu_torch.ops.rope import apply_rotary_emb
+
+    if rope_q is not None:
+        q = apply_rotary_emb(q.float(), rope_q[0], rope_q[1]).to(torch.bfloat16)
+    b, s, hd = q.shape
+    kv, d = k.shape[1], hd // num_heads
+    qf = q.reshape(b, s, num_heads, d).float().transpose(1, 2)
+    kf = k.reshape(b, kv, num_heads, d).float().transpose(1, 2)
+    vf = v.reshape(b, kv, num_heads, d).float().transpose(1, 2)
+    block = FAP.k1_launch_params(d)["block_k"]
+    m = torch.full((b, num_heads, s, 1), -1e30)
+    l = torch.zeros(b, num_heads, s, 1)
+    o = torch.zeros(b, num_heads, s, d)
+    for k0 in range(0, kv, block):
+        keys = torch.arange(k0, k0 + block)
+        kt = torch.zeros(b, num_heads, block, d)
+        vt = torch.zeros(b, num_heads, block, d)
+        n = min(block, kv - k0)  # TMA zero-fills the tile past K
+        kt[:, :, :n], vt[:, :, :n] = kf[:, :, k0:k0 + n], vf[:, :, k0:k0 + n]
+        sc = (qf @ kt.transpose(-1, -2)) * (scale * LOG2E)
+        if bias is not None:
+            bk = torch.zeros(b, block)
+            bk[:, :n] = bias.reshape(b, kv)[:, k0:k0 + n].float() * LOG2E
+            sc = sc + bk[:, None, None, :]
+        sc = torch.where(keys < kv, sc, torch.tensor(-1e30))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ vt
+        m = m_new
+    return (o / l).transpose(1, 2).reshape(b, s, hd).to(torch.bfloat16)
+
+
+LOG2E = 1.4426950408889634
+
+
+@pytest.mark.parametrize("s,kv,h,d,with_bias,with_rope", [
+    (200, 65, 4, 64, True, False),     # K = 65: one tile, 63 slots of padding
+    (130, 129, 4, 64, True, False),    # K = 129: one key past a tile
+    (257, 300, 2, 128, False, True),   # D = 128, q RoPE, ragged S
+], ids=["K65", "K129", "d128_rope"])
+def test_k1_schedule_emulated_matches_plain(rng, s, kv, h, d, with_bias, with_rope):
+    q, k, v, bias, rope = _inputs(rng, 2, s, kv, h, d, with_bias, with_rope)
+    q = torch.from_numpy(q * 2).bfloat16()
+    k, v = torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16()
+    args = dict(num_heads=h, scale=d ** -0.5, bias=_t(bias),
+                rope_q=None if rope is None else (_t(rope[0]), _t(rope[1])))
+    got = _emulate_k1(q, k, v, **args)
+    want = FAP.flash_attention_packed_plain(q, k, v, **args)
+    dd = got.float() - want.float()
+    assert float((dd.abs() / want.float().abs().clamp_min(1.0)).max()) <= K1_TOL["scaled"]
+    assert float(dd.norm() / want.float().norm()) <= K1_TOL["rel"]
