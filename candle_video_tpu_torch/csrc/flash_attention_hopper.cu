@@ -43,10 +43,57 @@
 //   Not yet: softmax overlapped with the next Q K^T, ping-pong between the
 //   consumers, a TMA store of the output.
 //
-// The template flags K2, K5 and K6 need (a fixed shift, a carried and
-// written-back state, no q rotation) fit this structure: the shift replaces
-// the running max, the state seeds (m, l, O) and replaces the store, and
-// the rotation is the q load's only f32 step.
+// K2, the long-sequence kernel, is the same kernel in the FIXED mode.
+// Replaces: candle_video_tpu/ops/pallas/flash_attention_packed.py:392,
+//   _packed_long -> _kernel_long (:234, pallas_call at :517), which the TPU
+//   takes once the padded key length exceeds 8192 (every DiT self-attention
+//   of a 512x768 clip of 169 frames or more).  K1's contract plus an f32
+//   shift [B, G] (G = H*D/128 lane groups), computed by the wrapper in torch
+//   as the JAX package computes it in XLA: the Cauchy-Schwarz bound
+//   scale * max|q_g| * max|k_g|, clipped at 40, plus the key bias's global
+//   max.  The shift is the same for every key tile of a row, so numerator
+//   and denominator are plain sums over key tiles: no running max, no
+//   alpha, no rescale of O, one divide by l at the end.  A row whose every
+//   score lies ~103 nats under the shift underflows to l = 0, as in the
+//   plain version (the TPU, which flushes subnormals, at ~87).
+// What bounds it: arithmetic, as K1.  At the 257-frame path shape (S = K =
+//   12672, H = 32, D = 64) one call is 4*S*K*D*H = 1.316 TFLOP, 1.33 ms at
+//   the bf16 peak (2.66 ms at D = 128); q/k/v/out are 4 * 52 MB.  The
+//   mma.sync template it ran on reached a quarter of that.
+// What the design does about it: K1's producer, ring, q load and Q K^T
+//   unchanged; the softmax reads shift[b, h / (128 / D)] once, in log2
+//   units, and per score is one FMA (scale, bias and shift), the padded-key
+//   mask and one exp2.  That exp2 keeps subnormal results (ex2.approx.f32,
+//   not .ftz, three more ALU instructions): scores sit up to ~80 nats under
+//   the shift (the bound is clipped at 40, a realised row maximum can be
+//   -40 or lower), where a flushed p would drop mass that the plain
+//   version keeps.
+//
+// K5, one ring-attention step, is the same kernel in the RING mode.
+// Replaces: candle_video_tpu/ops/pallas/ring_chunk.py:91, ring_chunk_update
+//   -> _kernel (:32, pallas_call at :134), which carries every DiT
+//   self-attention of the sequence-parallel denoise (--mesh sp=N): the
+//   local q chunk [B, Sq, H*D] (rotated outside, no bias) against one K/V
+//   chunk [B, Sc, H*D] that rotates around the ring, folded into the
+//   carried online-softmax state.  The state is plain, not lane-packed:
+//   running max m and sum l f32 [B, H, Sq] in natural units, unnormalised
+//   output acc f32 [B, Sq, H*D], updated in place.
+// What bounds it: arithmetic, as K1, plus the state read and written once
+//   in f32.  At sp = 1 on the 2B path (Sq = Sc = 4992, H = 32, D = 64) the
+//   products are 204 GFLOP (0.206 ms at the bf16 peak) and the bytes 225 MB
+//   (0.067 ms at 3.35 TB/s).
+// What the design does about it: K1's loop, seeded and written back in
+//   place of (-1e30, 0, 0) and the bf16 store.  Each consumer loads its rows'
+//   m (times log2e, K1's units), l (on one lane of each quad, so the quad's
+//   partial sums add once at the end) and acc straight into the m64nD
+//   fragments of O; after the last tile it reduces l over the quad and
+//   writes m in natural units, l and acc unnormalised.  Rows at or past Sq
+//   neither read nor write the state.  The TPU kernel takes the chunk's row
+//   max first and merges once; this carries the running max across tiles,
+//   so p is rounded to bf16 against another shift (K1's limits hold).
+//
+// The modes share everything up to the scores; K6 (no q rotation, any H)
+// is still on flash_attention_packed.cu's mma.sync template.
 
 #include <cuda_bf16.h>
 
@@ -60,6 +107,11 @@ typedef __nv_bfloat16 bf16;
 constexpr int BKV = 128;  // keys per tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG = -1e30f;
+
+// What the softmax does with the scores, the kernel's fourth template
+// parameter: K1's running max (ONLINE), K2's fixed shift (FIXED), K5's
+// running max seeded from and written back to the carried state (RING).
+enum Mode : int { ONLINE = 0, FIXED = 1, RING = 2 };
 
 // One CTA at head width D: CONS consumer warpgroups of 64 q rows each and
 // a ring of STAGES key tiles, both chosen by the host
@@ -94,19 +146,31 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// 2^x with subnormal results kept (the SFU plus a range fix-up)
+__device__ __forceinline__ float ex2_sub(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D, int CONS, int STAGES>
+// ONLINE and FIXED write out [B, S, H*D] bf16; FIXED reads shift [B, G];
+// RING reads and writes the state m_st, l_st [B, H, S] and acc_st
+// [B, S, H*D] (f32) and takes neither bias nor tables.
+template <int D, int CONS, int STAGES, int MODE>
 __global__ void __launch_bounds__(Cfg<D, CONS, STAGES>::THREADS, 1)
 flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap kmap,
                               const __grid_constant__ CUtensorMap vmap,
                               const bf16* __restrict__ q, const float* __restrict__ bias,
                               const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                              bf16* __restrict__ out, int S, int K, int H, int64_t rope_bstride,
-                              float scale) {
+                              const float* __restrict__ shift, bf16* __restrict__ out,
+                              float* __restrict__ m_st, float* __restrict__ l_st,
+                              float* __restrict__ acc_st, int S, int K, int H,
+                              int64_t rope_bstride, float scale) {
   using C = Cfg<D, CONS, STAGES>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -168,7 +232,7 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap kmap,
       uint4 val = make_uint4(0, 0, 0, 0);
       if (row < S) {
         val = *reinterpret_cast<const uint4*>(qb + (int64_t)row * HD + 8 * j);
-        if (cos_t) {
+        if (MODE != RING && cos_t) {
           const int64_t off =
               (int64_t)b * rope_bstride + (int64_t)row * HD + (int64_t)h * D + 8 * j;
           float cs[8], sn[8], x[8];
@@ -200,7 +264,7 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap kmap,
   }
 
   const int warp = tid / 32, lane = tid % 32;
-  const float* biasb = bias ? bias + (int64_t)b * K : nullptr;
+  const float* biasb = MODE != RING && bias ? bias + (int64_t)b * K : nullptr;
   const uint32_t q_addr = smem_u32(Qc);
   const float scale_log2 = scale * LOG2E;
 
@@ -211,6 +275,36 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
   for (int i = 0; i < 64; ++i) sc[i] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  // this thread's rows: row0 (i = 0) and row0 + 8 (i = 1)
+  const int row0 = q0 + 64 * c + warp * 16 + lane / 4;
+  float mfix = 0.f;  // FIXED: the row's shift in log2 units
+  if constexpr (MODE == FIXED) {
+    constexpr int HP = 128 / D;  // heads per 128-lane group
+    mfix = shift[(int64_t)b * (H / HP) + h / HP] * LOG2E;
+  }
+  const int64_t st0 = ((int64_t)b * H + h) * S + row0;  // RING: m_st / l_st index of row0
+  float* accb = MODE == RING ? acc_st + (int64_t)b * S * HD + (int64_t)h * D + 2 * (lane % 4)
+                             : nullptr;
+  if constexpr (MODE == RING) {
+    // seed (m, l, O) with the carried state; the row's l rides on one lane
+    // of its quad, since the quad's partial sums add once at the end
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row0 + 8 * i < S) {
+        m[i] = m_st[st0 + 8 * i] * LOG2E;
+        l[i] = lane % 4 == 0 ? l_st[st0 + 8 * i] : 0.f;
+      }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (row0 + 8 * i < S) {
+          const float2 a =
+              *reinterpret_cast<const float2*>(accb + (int64_t)(row0 + 8 * i) * HD + 8 * j);
+          o[4 * j + 2 * i] = a.x;
+          o[4 * j + 2 * i + 1] = a.y;
+        }
+  }
 
   for (int it = 0; it < ntiles; ++it) {
     const int s = it % C::STAGES;
@@ -236,19 +330,24 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap kmap,
     // (i = 0) and + 8 (i = 1), keys k0 + 8j + 2*(lane%4) + e in sc[4j + 2i + e]
     // The scores are kept in log2 units, (s * scale + bias) * log2e, so p is
     // one subtraction and one exp2 away; the running max m is in the same
-    // units.  Keys past K exist only in the last tile.
+    // units.  FIXED folds its shift in here, the same for every key tile.
+    // Keys past K exist only in the last tile.
     const int k0 = it * BKV;
+    const float tile_shift = mfix;
     if (biasb) {
 #pragma unroll
       for (int j = 0; j < 16; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + 8 * j + 2 * (lane % 4) + e;
-          const float bk = key < K ? biasb[key] * LOG2E : 0.f;
+          const float bk = key < K ? fmaf(biasb[key], LOG2E, -tile_shift) : 0.f;
 #pragma unroll
           for (int i = 0; i < 2; ++i)
             sc[4 * j + 2 * i + e] = fmaf(sc[4 * j + 2 * i + e], scale_log2, bk);
         }
+    } else if constexpr (MODE == FIXED) {
+#pragma unroll
+      for (int r = 0; r < 64; ++r) sc[r] = fmaf(sc[r], scale_log2, -tile_shift);
     } else {
 #pragma unroll
       for (int r = 0; r < 64; ++r) sc[r] *= scale_log2;
@@ -263,28 +362,38 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap kmap,
             sc[4 * j + 2 + e] = NEG;
           }
     }
-    float mx[2] = {NEG, NEG};
+    if constexpr (MODE == FIXED) {
+      // p = 2^(score - shift), summed as it is: no max, no rescale
 #pragma unroll
-    for (int r = 0; r < 64; ++r) mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], sc[r]);
-    float alpha[2], rowsum[2] = {0.f, 0.f};
+      for (int r = 0; r < 64; ++r) {
+        const float p = ex2_sub(sc[r]);
+        sc[r] = p;
+        l[(r >> 1) & 1] += p;
+      }
+    } else {
+      float mx[2] = {NEG, NEG};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = ex2(m[i] - m_new);
-      m[i] = m_new;
+      for (int r = 0; r < 64; ++r) mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], sc[r]);
+      float alpha[2], rowsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = ex2(m[i] - m_new);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int r = 0; r < 64; ++r) {
+        const float p = ex2(sc[r] - m[(r >> 1) & 1]);
+        sc[r] = p;
+        rowsum[(r >> 1) & 1] += p;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rowsum[i];
+#pragma unroll
+      for (int r = 0; r < D / 2; ++r) o[r] *= alpha[(r >> 1) & 1];
     }
-#pragma unroll
-    for (int r = 0; r < 64; ++r) {
-      const float p = ex2(sc[r] - m[(r >> 1) & 1]);
-      sc[r] = p;
-      rowsum[(r >> 1) & 1] += p;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rowsum[i];
-#pragma unroll
-    for (int r = 0; r < D / 2; ++r) o[r] *= alpha[(r >> 1) & 1];
 
     // O[64 x D] += P V: p in bf16 is the A fragment of 16 keys (two n8
     // column blocks of S), packed before the fence; V's 16 key rows are
@@ -316,8 +425,24 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap kmap,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
+  if constexpr (MODE == RING) {
+    // the state goes back unnormalised, m in natural units
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row0 + 8 * i < S && lane % 4 == 0) {
+        m_st[st0 + 8 * i] = m[i] * (1.f / LOG2E);
+        l_st[st0 + 8 * i] = l[i];
+      }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (row0 + 8 * i < S)
+          *reinterpret_cast<float2*>(accb + (int64_t)(row0 + 8 * i) * HD + 8 * j) =
+              make_float2(o[4 * j + 2 * i], o[4 * j + 2 * i + 1]);
+    return;
+  }
   const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
-  const int row0 = q0 + 64 * c + warp * 16 + lane / 4;
   bf16* ob = out + (int64_t)b * S * HD + (int64_t)h * D + 2 * (lane % 4);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -330,10 +455,22 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap kmap,
   }
 }
 
-template <int D, int CONS, int STAGES>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   const void* cos_t, const void* sin_t, void* out, int B, int S, int K, int H,
-                   long long rope_bstride, float scale, int smem_bytes, cudaStream_t st) {
+// the pointers a mode reads or writes beyond q, k and v
+struct Args {
+  const void* bias;
+  const void* cos_t;
+  const void* sin_t;
+  const void* shift;
+  void* out;
+  void* m;
+  void* l;
+  void* acc;
+};
+
+template <int D, int CONS, int STAGES, int MODE>
+cudaError_t launch(const void* q, const void* k, const void* v, const Args& a, int B, int S,
+                   int K, int H, long long rope_bstride, float scale, int smem_bytes,
+                   cudaStream_t st) {
   using C = Cfg<D, CONS, STAGES>;
   if (smem_bytes < C::SMEM) return cudaErrorInvalidValue;
   // K and V as [B, K, H*D] (innermost first), one 64-column box of 128 keys
@@ -344,37 +481,78 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   int err = make_map_bf16(&kmap, k, 3, dims, strides, box);
   if (err == 0) err = make_map_bf16(&vmap, v, 3, dims, strides, box);
   if (err != 0) return (cudaError_t)err;
-  auto kern = flash_attention_hopper_kernel<D, CONS, STAGES>;
+  auto kern = flash_attention_hopper_kernel<D, CONS, STAGES, MODE>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return e;
   dim3 grid((S + C::BQ - 1) / C::BQ, H, B);
   kern<<<grid, C::THREADS, smem_bytes, st>>>(
-      kmap, vmap, static_cast<const bf16*>(q), static_cast<const float*>(bias),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<bf16*>(out), S, K, H, (int64_t)rope_bstride, scale);
+      kmap, vmap, static_cast<const bf16*>(q), static_cast<const float*>(a.bias),
+      static_cast<const float*>(a.cos_t), static_cast<const float*>(a.sin_t),
+      static_cast<const float*>(a.shift), static_cast<bf16*>(a.out),
+      static_cast<float*>(a.m), static_cast<float*>(a.l), static_cast<float*>(a.acc), S, K, H,
+      (int64_t)rope_bstride, scale);
   return cudaGetLastError();
+}
+
+// The (D, consumers, stages) built for every mode: (64, 3, 3) and
+// (128, 2, 3); any other configuration is refused.
+template <int MODE>
+int dispatch(const void* q, const void* k, const void* v, const Args& a, int B, int S, int K,
+             int H, int D, long long rope_bstride, float scale, int consumers, int stages,
+             int smem_bytes, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || S < 1 || K < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (D == 64 && consumers == 3 && stages == 3)
+    return (int)launch<64, 3, 3, MODE>(q, k, v, a, B, S, K, H, rope_bstride, scale, smem_bytes,
+                                       st);
+  if (D == 128 && consumers == 2 && stages == 3)
+    return (int)launch<128, 2, 3, MODE>(q, k, v, a, B, S, K, H, rope_bstride, scale,
+                                        smem_bytes, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q [B, S, H*D], k, v [B, K, H*D] bf16; bias f32 [B, K] or null; cos, sin f32
-// [1|B, S, H*D] or null (rope_bstride 0 or S*H*D); out [B, S, H*D] bf16.
-// consumers, stages and smem_bytes are the host's launch parameters; the
-// (D, consumers, stages) built here are (64, 3, 3) and (128, 2, 3).
+// consumers, stages and smem_bytes are the host's launch parameters
+// (flash_attention_packed.py's launch_params), the same for all three modes.
+
+// K1: q [B, S, H*D], k, v [B, K, H*D] bf16; bias f32 [B, K] or null; cos,
+// sin f32 [1|B, S, H*D] or null (rope_bstride 0 or S*H*D); out [B, S, H*D]
+// bf16.
 extern "C" int cvt_flash_attention_packed(const void* q, const void* k, const void* v,
                                           const void* bias, const void* cos_t,
                                           const void* sin_t, void* out, int B, int S, int K,
                                           int H, int D, long long rope_bstride, float scale,
                                           int consumers, int stages, int smem_bytes,
                                           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || S < 1 || K < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  if (D == 64 && consumers == 3 && stages == 3)
-    return (int)launch<64, 3, 3>(q, k, v, bias, cos_t, sin_t, out, B, S, K, H, rope_bstride,
-                                 scale, smem_bytes, st);
-  if (D == 128 && consumers == 2 && stages == 3)
-    return (int)launch<128, 2, 3>(q, k, v, bias, cos_t, sin_t, out, B, S, K, H, rope_bstride,
-                                  scale, smem_bytes, st);
-  return (int)cudaErrorInvalidValue;
+  const Args a{bias, cos_t, sin_t, nullptr, out, nullptr, nullptr, nullptr};
+  return dispatch<ONLINE>(q, k, v, a, B, S, K, H, D, rope_bstride, scale, consumers, stages,
+                          smem_bytes, stream);
+}
+
+// K2: K1's arguments plus the shift f32 [B, H*D/128].
+extern "C" int cvt_flash_attention_packed_long(const void* q, const void* k, const void* v,
+                                               const void* bias, const void* cos_t,
+                                               const void* sin_t, const void* shift, void* out,
+                                               int B, int S, int K, int H, int D,
+                                               long long rope_bstride, float scale,
+                                               int consumers, int stages, int smem_bytes,
+                                               void* stream) {
+  if (shift == nullptr || D < 1 || 128 % D || H % (128 / D)) return (int)cudaErrorInvalidValue;
+  const Args a{bias, cos_t, sin_t, shift, out, nullptr, nullptr, nullptr};
+  return dispatch<FIXED>(q, k, v, a, B, S, K, H, D, rope_bstride, scale, consumers, stages,
+                         smem_bytes, stream);
+}
+
+// K5: q [B, Sq, H*D] (rotated), k, v [B, Sc, H*D] bf16; the state m, l
+// [B, H, Sq] and acc [B, Sq, H*D] f32, updated in place.
+extern "C" int cvt_ring_chunk_update(const void* q, const void* k, const void* v, void* m,
+                                     void* l, void* acc, int B, int Sq, int Sc, int H, int D,
+                                     float scale, int consumers, int stages, int smem_bytes,
+                                     void* stream) {
+  if (m == nullptr || l == nullptr || acc == nullptr) return (int)cudaErrorInvalidValue;
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, m, l, acc};
+  return dispatch<RING>(q, k, v, a, B, Sq, Sc, H, D, 0, scale, consumers, stages, smem_bytes,
+                        stream);
 }

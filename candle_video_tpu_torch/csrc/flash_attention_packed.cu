@@ -1,66 +1,8 @@
-// Lane-packed flash attention on mma.sync (bf16 in, f32 softmax, bf16 out):
-// the template of K2, K5 and K6.  K1, the one-pass kernel this template was
-// first written for, is redesigned for Hopper in flash_attention_hopper.cu
-// (wgmma fed by a TMA ring); these three move onto that design next.
+// K6: classic flash attention on mma.sync (bf16 in, f32 softmax, bf16 out),
+// the last kernel on this template.  K1, K2 and K5, first written on it,
+// run on the wgmma/TMA kernel of flash_attention_hopper.cu; K6 moves there
+// next.
 //
-// The template's contract is K1's: q/k/v in their natural projection layout
-//   [B, S, H*D] (a head is a D-wide column slice, addressed by stride, never
-//   transposed), optional additive f32 key bias [B, 1, 1, K], optional
-//   interleaved RoPE applied to q inside the kernel from full-width f32
-//   tables [1|B, S, H*D] (k arrives rotated), ragged S and K masked.
-//
-// Its design: both products run on the tensor cores (mma.sync m16n8k16 bf16
-//   -> f32) with every intermediate in registers.  One CTA of 8 warps owns a
-//   128-row q tile of one (batch, head); each warp owns 16 rows, keeps its
-//   rotated q as A fragments, its 16 x 64 score tile and its 16 x D output
-//   accumulator in registers, and runs the softmax there: no [rows, K] score
-//   tile is ever stored.  p is rounded to bf16 and re-used directly as the A
-//   operand of P*V, as on the TPU.  K/V stream through shared memory in
-//   64-key tiles, double-buffered with cp.async so the next tile's loads
-//   overlap this tile's math; fragments come from shared memory by ldmatrix
-//   (V transposed on load), with padded rows so those loads are free of bank
-//   conflicts.
-//
-// K2, the long-sequence kernel, is the same template with FIXED = true.
-// Replaces: candle_video_tpu/ops/pallas/flash_attention_packed.py:392,
-//   _packed_long -> _kernel_long (pallas_call at :517), which the TPU takes
-//   once the padded key length exceeds 8192 (every DiT self-attention of a
-//   512x768 clip of 169 frames or more).  Same contract as K1 plus f32
-//   bounds [B, G] (G = H*D/128 lane groups): the Cauchy-Schwarz bound
-//   scale * max|q_g| * max|k_g|, clipped at 40, plus the key bias's global
-//   max, computed by the wrapper.  The bound is the softmax shift, FIXED for
-//   every key tile of a row, so numerator and denominator are plain sums over
-//   key tiles: no running max, no alpha, no rescale of the output registers,
-//   one divide by l at the end.  A row whose every score lies ~87 nats under
-//   the bound underflows to l = 0, exactly as on the TPU.
-// What bounds it: arithmetic, as K1.  At the 257-frame path shape (S = K =
-//   12672, H = 32, D = 64) one call is 4*S*K*D*H = 1.316 TFLOP, 1.33 ms at
-//   the dense bf16 tensor-core peak; q/k/v/out are 4 * 52 MB.  The design is
-//   the template's (the TPU's sequential key-block grid axis is the loop over 64-key
-//   tiles inside the CTA); the fixed shift removes, per tile, the row max,
-//   its two shuffles, one exp2 per row and D/2 multiplies per thread.
-//
-// K5, one ring-attention step, is the same template with RING = true.
-// Replaces: candle_video_tpu/ops/pallas/ring_chunk.py:91, ring_chunk_update
-//   -> _kernel (pallas_call at :134), which carries every DiT self-attention
-//   of the sequence-parallel denoise (--mesh sp=N): the local q chunk
-//   [B, Sq, H*D] (rotated outside) against one K/V chunk [B, Sc, H*D] that
-//   rotates around the ring, folded into the carried online-softmax state.
-//   The state is plain, not lane-packed: running max m and sum l f32
-//   [B, H, Sq], unnormalised output acc f32 [B, Sq, H*D], updated in place.
-//   Each CTA seeds its registers from the incoming (m, l, acc) of its 128
-//   rows of one head instead of (-1e30, 0, 0), streams the chunk's key tiles
-//   with the template's loop (no RoPE, no bias, padded keys masked) and writes the
-//   state back unnormalised.  The TPU kernel takes the chunk's row max
-//   first and merges once; this carries the running max across tiles, so p
-//   is rounded to bf16 against another shift (K1's limits hold).  m stays
-//   finite at -1e30, so m_old - m_new is never -inf - (-inf).
-// What bounds it: arithmetic, as K1, plus the state, read and written once
-//   in f32.  At sp = 1 on the 2B path (Sq = Sc = 4992, H = 32, D = 64) the
-//   products are 204 GFLOP (0.206 ms at the bf16 peak) and the bytes 225 MB
-//   (0.067 ms at 3.35 TB/s).
-//
-// K6, classic flash attention, is the same template with ROPE = false.
 // Replaces: candle_video_tpu/ops/pallas/flash_attention.py:175,
 //   flash_attention -> _fa_kernel (:41) and _fa_kernel_onepass (:108),
 //   pallas_call at :257: the TPU's fallback for the shapes the lane-packed
@@ -70,12 +12,24 @@
 //   v with the true running row max (no bound, no shift: SVD logits are not
 //   clipped), an optional f32 key bias [B, 1, 1, K], padded keys at -1e30, p
 //   rounded to bf16 before P*V, f32 accumulation, bf16 out.  It reads
-//   [B, S, H, D] as it lies, which is K1's [B, S, H*D] with any H: the
-//   TPU's [B*H, S, D] transposes were a tiling choice and are gone.  The
-//   q-rotation code is compiled out rather than skipped at run time.
+//   [B, S, H, D] as it lies, which is [B, S, H*D] with any H (a head is a
+//   D-wide column slice, addressed by stride): the TPU's [B*H, S, D]
+//   transposes were a tiling choice and are gone.
 // What bounds it: arithmetic.  At the SVD path shape (B = 28 frames of a
 //   CFG pair, S = K = 72*128 = 9216, H = 5, D = 64) one call is 3.04 TFLOP,
 //   3.08 ms at the bf16 peak; q/k/v/out are 0.66 GB, 0.2 ms at 3.35 TB/s.
+// What the design does about it: both products run on the tensor cores
+//   (mma.sync m16n8k16 bf16 -> f32) with every intermediate in registers.
+//   One CTA of 8 warps owns a 128-row q tile of one (batch, head); each warp
+//   owns 16 rows, keeps its q as A fragments, its 16 x 64 score tile and its
+//   16 x D output accumulator in registers, and runs the online softmax
+//   there: no [rows, K] score tile is ever stored.  p is rounded to bf16 and
+//   re-used directly as the A operand of P*V, as on the TPU.  K/V stream
+//   through shared memory in 64-key tiles, double-buffered with cp.async so
+//   the next tile's loads overlap this tile's math; fragments come from
+//   shared memory by ldmatrix (V transposed on load), with padded rows so
+//   those loads are free of bank conflicts.  mma.sync cannot reach the
+//   wgmma rate (K1 on this template reached a fifth of its bound).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,20 +93,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// FIXED = false: online (running-max) softmax.  FIXED = true: K2, the
-// shift is bounds[b, h / (128 / D)] for every key tile.  RING = true: K5,
-// K1's online softmax seeded from and written back to the carried state
-// (m_st, l_st [B, H, S], acc_st [B, S, H*D], f32) instead of out.  ROPE =
-// false (K5, K6) compiles the q rotation out.
-template <int D, bool FIXED, bool RING, bool ROPE>
+// q, k, v [B, S|K, H*D] bf16, bias f32 [B, K] or null, out [B, S, H*D]
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const float* __restrict__ bias,
-                              const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                              const float* __restrict__ bounds, bf16* __restrict__ out,
-                              float* __restrict__ m_st, float* __restrict__ l_st,
-                              float* __restrict__ acc_st, int S, int K, int H,
-                              int64_t rope_bstride, float scale) {
+flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const float* __restrict__ bias,
+                       bf16* __restrict__ out, int S, int K, int H, float scale) {
   constexpr int LD = Smem<D>::LD;
   constexpr int VEC = D / 8;  // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -181,36 +127,11 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
   };
   load_kv(0, 0);
 
-  // q tile -> shared, rotated in f32 and rounded to bf16 (the TPU kernel's
-  // _rotate: lane 2i gets x[2i]c - x[2i+1]s, lane 2i+1 gets x[2i+1]c + x[2i]s)
+  // q tile -> shared
   for (int i = tid; i < BQ * VEC; i += THREADS) {
     const int r = i / VEC, c = (i % VEC) * 8, row = q0 + r;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < S) {
-      val = *reinterpret_cast<const uint4*>(qb + (int64_t)row * HD + c);
-      if (ROPE && cos_t) {
-        const int64_t off = (int64_t)b * rope_bstride + (int64_t)row * HD + (int64_t)h * D + c;
-        float cs[8], sn[8], x[8];
-        *reinterpret_cast<float4*>(cs) = reinterpret_cast<const float4*>(cos_t + off)[0];
-        *reinterpret_cast<float4*>(cs + 4) = reinterpret_cast<const float4*>(cos_t + off)[1];
-        *reinterpret_cast<float4*>(sn) = reinterpret_cast<const float4*>(sin_t + off)[0];
-        *reinterpret_cast<float4*>(sn + 4) = reinterpret_cast<const float4*>(sin_t + off)[1];
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&val);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 t = __bfloat1622float2(h2[j]);
-          x[2 * j] = t.x;
-          x[2 * j + 1] = t.y;
-        }
-        uint32_t* w = reinterpret_cast<uint32_t*>(&val);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float e = x[2 * j] * cs[2 * j] - x[2 * j + 1] * sn[2 * j];
-          const float o = x[2 * j + 1] * cs[2 * j + 1] + x[2 * j] * sn[2 * j + 1];
-          w[j] = pack_bf16(e, o);
-        }
-      }
-    }
+    if (row < S) val = *reinterpret_cast<const uint4*>(qb + (int64_t)row * HD + c);
     *reinterpret_cast<uint4*>(Qs + r * LD + c) = val;
   }
   __syncthreads();
@@ -228,35 +149,6 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  float mfix = 0.f;
-  if constexpr (FIXED) {
-    constexpr int HP = 128 / D;  // heads per 128-lane group
-    mfix = bounds[(int64_t)b * (H / HP) + h / HP];
-  }
-  // this thread's rows: lane/4 (e = 0, 1) and lane/4 + 8 (e = 2, 3)
-  const int row0 = q0 + warp * 16 + lane / 4;
-  const int64_t st0 = ((int64_t)b * H + h) * S + row0;  // m_st / l_st index of row0
-  float* accb = RING ? acc_st + (int64_t)b * S * HD + (int64_t)h * D + 2 * (lane % 4) : nullptr;
-  if constexpr (RING) {
-    // seed the online softmax with the carried state; the row's l rides on
-    // one lane of its four, since the four lanes' partial sums add at the end
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row0 + 8 * r < S) {
-        m[r] = m_st[st0 + 8 * r];
-        l[r] = lane % 4 == 0 ? l_st[st0 + 8 * r] : 0.f;
-      }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        if (row0 + 8 * r < S) {
-          const float2 a =
-              *reinterpret_cast<const float2*>(accb + (int64_t)(row0 + 8 * r) * HD + 8 * n);
-          o[n][2 * r] = a.x;
-          o[n][2 * r + 1] = a.y;
-        }
-  }
 
   const int ntiles = (K + BK - 1) / BK;
   for (int it = 0; it < ntiles; ++it) {
@@ -287,61 +179,44 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
       }
     }
 
-    // softmax: this thread holds rows lane/4 (e = 0, 1) and lane/4 + 8
+    // online softmax: this thread holds rows lane/4 (e = 0, 1) and lane/4 + 8
     // (e = 2, 3), keys 8j + 2*(lane%4) + (e & 1)
     const int k0 = it * BK;
-    if constexpr (FIXED) {
-      // fixed shift: the bias is added before the bound is subtracted (the
-      // bound holds the bias max); padded keys are -1e30 before the exp
+    float mx[2] = {NEG, NEG};
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
-          float val = s[j][e] * scale;
-          if (biasb && key < K) val += biasb[key];
-          val = key < K ? val : NEG;
-          const float p = exp2f((val - mfix) * LOG2E);
-          s[j][e] = p;
-          l[e >> 1] += p;
-        }
-    } else {
-      float mx[2] = {NEG, NEG};
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+        float val = s[j][e] * scale;
+        if (biasb && key < K) val += biasb[key];
+        val = key < K ? val : NEG;
+        s[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    float alpha[2], rowsum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f((m[r] - m_new) * LOG2E);
+      m[r] = m_new;
+    }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
-          float val = s[j][e] * scale;
-          if (biasb && key < K) val += biasb[key];
-          val = key < K ? val : NEG;
-          s[j][e] = val;
-          mx[e >> 1] = fmaxf(mx[e >> 1], val);
-        }
-      float alpha[2], rowsum[2] = {0.f, 0.f};
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        alpha[r] = exp2f((m[r] - m_new) * LOG2E);
-        m[r] = m_new;
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((s[j][e] - m[e >> 1]) * LOG2E);
+        s[j][e] = p;
+        rowsum[e >> 1] += p;
       }
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rowsum[r];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f((s[j][e] - m[e >> 1]) * LOG2E);
-          s[j][e] = p;
-          rowsum[e >> 1] += p;
-        }
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rowsum[r];
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-    }
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
 
     // o[16 x D] += p . v: the score accumulators of two n8 tiles are the A
     // fragment of one 16-key step
@@ -367,24 +242,8 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  if constexpr (RING) {
-    // the state goes back unnormalised, in f32
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row0 + 8 * r < S && lane % 4 == 0) {
-        m_st[st0 + 8 * r] = m[r];
-        l_st[st0 + 8 * r] = l[r];
-      }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        if (row0 + 8 * r < S)
-          *reinterpret_cast<float2*>(accb + (int64_t)(row0 + 8 * r) * HD + 8 * n) =
-              make_float2(o[n][2 * r], o[n][2 * r + 1]);
-    return;
-  }
   const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+  const int row0 = q0 + warp * 16 + lane / 4;
   bf16* ob = out + (int64_t)b * S * HD + (int64_t)h * D + 2 * (lane % 4);
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -397,58 +256,21 @@ flash_attention_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict
   }
 }
 
-template <int D, bool FIXED, bool RING = false, bool ROPE = true>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   const void* cos_t, const void* sin_t, const void* bounds, void* out,
-                   int B, int S, int K, int H, long long rope_bstride, float scale,
-                   cudaStream_t st, void* m_st = nullptr, void* l_st = nullptr,
-                   void* acc_st = nullptr) {
-  auto kern = flash_attention_packed_kernel<D, FIXED, RING, ROPE>;
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
+                   int B, int S, int K, int H, float scale, cudaStream_t st) {
+  auto kern = flash_attention_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Smem<D>::BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, Smem<D>::BYTES, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<const float*>(bounds),
-      static_cast<bf16*>(out), static_cast<float*>(m_st), static_cast<float*>(l_st),
-      static_cast<float*>(acc_st), S, K, H, (int64_t)rope_bstride, scale);
+      static_cast<const float*>(bias), static_cast<bf16*>(out), S, K, H, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
-
-extern "C" int cvt_flash_attention_packed_long(const void* q, const void* k, const void* v,
-                                               const void* bias, const void* cos_t,
-                                               const void* sin_t, const void* bounds, void* out,
-                                               int B, int S, int K, int H, int D,
-                                               long long rope_bstride, float scale,
-                                               void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bounds == nullptr || H % (128 / D)) return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return (int)launch<64, true>(q, k, v, bias, cos_t, sin_t, bounds, out, B, S, K, H,
-                                 rope_bstride, scale, st);
-  if (D == 128)
-    return (int)launch<128, true>(q, k, v, bias, cos_t, sin_t, bounds, out, B, S, K, H,
-                                  rope_bstride, scale, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int cvt_ring_chunk_update(const void* q, const void* k, const void* v, void* m,
-                                     void* l, void* acc, int B, int Sq, int Sc, int H, int D,
-                                     float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m == nullptr || l == nullptr || acc == nullptr) return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return (int)launch<64, false, true, false>(q, k, v, nullptr, nullptr, nullptr, nullptr,
-                                               nullptr, B, Sq, Sc, H, 0, scale, st, m, l, acc);
-  if (D == 128)
-    return (int)launch<128, false, true, false>(q, k, v, nullptr, nullptr, nullptr, nullptr,
-                                                nullptr, B, Sq, Sc, H, 0, scale, st, m, l, acc);
-  return (int)cudaErrorInvalidValue;
-}
 
 // K6: q, k, v [B, S|K, H, D] bf16, optional bias f32 [B, 1, 1, K], out
 // [B, S, H, D] bf16
@@ -456,11 +278,7 @@ extern "C" int cvt_flash_attention(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, int B, int S, int K, int H,
                                    int D, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return (int)launch<64, false, false, false>(q, k, v, bias, nullptr, nullptr, nullptr, out,
-                                                B, S, K, H, 0, scale, st);
-  if (D == 128)
-    return (int)launch<128, false, false, false>(q, k, v, bias, nullptr, nullptr, nullptr, out,
-                                                 B, S, K, H, 0, scale, st);
+  if (D == 64) return (int)launch<64>(q, k, v, bias, out, B, S, K, H, scale, st);
+  if (D == 128) return (int)launch<128>(q, k, v, bias, out, B, S, K, H, scale, st);
   return (int)cudaErrorInvalidValue;
 }

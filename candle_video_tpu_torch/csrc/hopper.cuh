@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels rebuilt for the card
-// (K1 in flash_attention_hopper.cu, K8 in conv3d_igemm.cu): TMA tensor
-// maps and loads, mbarrier rings, wgmma shared-memory descriptors and the
-// wgmma instructions they use, register reallocation.  Raw PTX, no CUTLASS,
-// so a translation unit builds in seconds.
+// (K1, K2 and K5 in flash_attention_hopper.cu, K8 in conv3d_igemm.cu): TMA
+// tensor maps and loads, mbarrier rings, wgmma shared-memory descriptors and
+// the wgmma instructions they use, register reallocation.  Raw PTX, no
+// CUTLASS, so a translation unit builds in seconds.
 //
 // Layout contract between TMA and wgmma: every tile in shared memory is a
 // stack of 128-byte rows (64 bf16) written by TMA with

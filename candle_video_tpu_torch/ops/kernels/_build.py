@@ -48,12 +48,14 @@ _SIGNATURES = {
     "cvt_flash_attention_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, ctypes.c_longlong, _F, _I, _I, _I, _P],
     # q, k, v, bias, cos, sin, shift [B, G], out, B, S, K, H, D,
-    # rope_batch_stride, scale, stream
+    # rope_batch_stride, scale, consumers, stages, shared memory bytes, stream
     "cvt_flash_attention_packed_long": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                        _I, _I, _I, ctypes.c_longlong, _F, _P],
+                                        _I, _I, _I, ctypes.c_longlong, _F, _I, _I, _I,
+                                        _P],
     # q, k, v, m, l, acc (the state, updated in place), B, Sq, Sc, H, D, scale,
-    # stream
-    "cvt_ring_chunk_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # consumers, stages, shared memory bytes, stream
+    "cvt_ring_chunk_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                              _I, _P],
     # q, k, v, bias, out, B, S, K, H, D, scale, stream
     "cvt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, w_q, s, bias, workspace, out, M, K, N, qblock, splits, k_per_split,

@@ -10,9 +10,10 @@ tiling choices and are not carried: the kernel reads the natural layout
 with any H.  ``ops/attention.py`` sends it the shapes the lane-packed kernels
 do not take (``packed_viable`` false) above ``_SHORT_KV`` keys.
 
-The kernel is the ``ROPE = false`` instance of ``csrc/flash_attention_packed.cu``
-(``cvt_flash_attention``).  CPU tensors take the plain version; CUDA tensors
-launch the kernel or raise.
+The kernel is ``csrc/flash_attention_packed.cu`` (``cvt_flash_attention``),
+the ``mma.sync`` design K1, K2 and K5 have left for
+``csrc/flash_attention_hopper.cu``.  CPU tensors take the plain version;
+CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations

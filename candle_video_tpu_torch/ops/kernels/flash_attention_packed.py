@@ -15,11 +15,12 @@ the kernel (k arrives rotated) and ragged S/K masked.
 - ``flash_attention_packed`` routes as the JAX function does: K2 once the
   key length rounded up to 128 exceeds ``_ONEPASS_KP_MAX``, else K1.
 
-K1 is ``csrc/flash_attention_hopper.cu`` (wgmma fed by a TMA ring; its
-launch parameters are ``k1_launch_params``), K2 the ``mma.sync`` template of
-``csrc/flash_attention_packed.cu``; each source note says what bounds the
-kernel and how its design answers.  CPU tensors take the plain versions;
-CUDA tensors launch a kernel or raise.
+Both are modes of one kernel, ``csrc/flash_attention_hopper.cu`` (wgmma fed
+by a TMA ring), K1 the online mode and K2 the fixed-shift one; K5
+(``ring_chunk.py``) is its third mode.  ``launch_params`` decides the launch
+of all three.  The source note says what bounds each mode and how the
+design answers.  CPU tensors take the plain versions; CUDA tensors launch a
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -43,18 +44,26 @@ _ONEPASS_KP_MAX = 8192
 SMEM_LIMIT = 232448
 
 
-def k1_launch_params(head_dim: int) -> dict:
-    """K1's launch at head width ``head_dim``, decided here and passed to
-    the kernel (``csrc/flash_attention_hopper.cu``), which refuses a
-    configuration it was not built for: ``consumers`` warpgroups of 64 q
-    rows (three at D = 64, two at D = 128) and a producer per CTA, and a
-    ring of ``stages`` slots of one K and one V tile.  A tile is
-    ``block_k`` = 128 keys, the n of the kernel's QKᵀ instruction (wgmma
-    m64n128k16), loaded by TMA as ``head_dim / 64`` boxes of ``box``
-    elements (innermost first: 64 columns of ``[B, K, H·D]``, 128 keys, one
-    batch row) with 128-byte rows under the 128-byte swizzle.
-    ``smem_bytes`` is q, the ring, its full and empty barriers, and 1024
-    bytes to align the base."""
+# the modes of csrc/flash_attention_hopper.cu, in the order of its Mode enum:
+# K1's running max, K2's fixed shift, K5's carried ring state
+MODES = ("online", "fixed", "ring")
+
+
+def launch_params(head_dim: int, mode: str = "online") -> dict:
+    """The launch of ``csrc/flash_attention_hopper.cu`` in ``mode`` at head
+    width ``head_dim``, decided here and passed to the kernel, which refuses
+    a configuration it was not built for.  The three modes share the
+    producer, the ring, the q load and the QKᵀ, and so one launch:
+    ``consumers`` warpgroups of 64 q rows (three at D = 64, two at D = 128)
+    and a producer per CTA, and a ring of ``stages`` slots of one K and one
+    V tile.  A tile is ``block_k`` = 128 keys, the n of the kernel's QKᵀ
+    instruction (wgmma m64n128k16), loaded by TMA as ``head_dim / 64``
+    boxes of ``box`` elements (innermost first: 64 columns of
+    ``[B, K, H·D]``, 128 keys, one batch row) with 128-byte rows under the
+    128-byte swizzle.  ``smem_bytes`` is q, the ring, its full and empty
+    barriers, and 1024 bytes to align the base."""
+    if mode not in MODES:
+        raise ValueError(f"{NAME}: mode {mode!r} not in {MODES}")
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"{NAME}: head dim {head_dim} not in {HEAD_DIMS}")
     consumers = 3 if head_dim == 64 else 2
@@ -65,6 +74,11 @@ def k1_launch_params(head_dim: int) -> dict:
     return dict(consumers=consumers, threads=128 * (consumers + 1), block_q=block_q,
                 block_k=block_k, stages=stages, box=box, box_inner_bytes=box[0] * 2,
                 boxes_per_tile=head_dim // 64, smem_bytes=smem)
+
+
+def k1_launch_params(head_dim: int) -> dict:
+    """K1's launch: ``launch_params`` in the online mode."""
+    return launch_params(head_dim, "online")
 
 
 def packed_viable(s_len: int, kv_len: int, num_heads: int, head_dim: int) -> bool:
@@ -210,7 +224,7 @@ def flash_attention_packed_onepass(q, k, v, *, num_heads: int, scale: float, bia
     b, s, hd = q.shape
     kv = k.shape[1]
     d = hd // num_heads
-    launch = k1_launch_params(d)
+    launch = launch_params(d, "online")
     out = torch.empty_like(q)
     cos, sin = rope_q if rope_q is not None else (None, None)
     rope_bstride = 0 if cos is None or cos.shape[0] == 1 else s * hd
@@ -235,12 +249,22 @@ def flash_attention_packed_long(q, k, v, *, num_heads: int, scale: float, bias=N
         return flash_attention_packed_long_plain(q, k, v, num_heads=num_heads,
                                                  scale=scale, bias=bias, rope_q=rope_q)
     _check(q, k, v, num_heads, bias, rope_q, NAME_LONG)
-    b, s, hd = q.shape
-    kv = k.shape[1]
-    d = hd // num_heads
+    d = q.shape[-1] // num_heads
     if num_heads % (128 // d):
         raise ValueError(f"{NAME_LONG}: {num_heads} heads do not fill 128-lane groups")
     shift = long_shift(q, k, num_heads=num_heads, scale=scale, bias=bias).contiguous()
+    return launch_long(q, k, v, shift, num_heads=num_heads, scale=scale, bias=bias,
+                       rope_q=rope_q)
+
+
+def launch_long(q, k, v, shift, *, num_heads: int, scale: float, bias=None, rope_q=None):
+    """K2's kernel alone on inputs ``flash_attention_packed_long`` has
+    checked, with its ``long_shift`` f32 [B, G] (timed apart by
+    ``chip_smoke.py``)."""
+    b, s, hd = q.shape
+    kv = k.shape[1]
+    d = hd // num_heads
+    launch = launch_params(d, "fixed")
     out = torch.empty_like(q)
     cos, sin = rope_q if rope_q is not None else (None, None)
     rope_bstride = 0 if cos is None or cos.shape[0] == 1 else s * hd
@@ -248,7 +272,8 @@ def flash_attention_packed_long(q, k, v, *, num_heads: int, scale: float, bias=N
     err = _build.lib().cvt_flash_attention_packed_long(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias), ptr(cos), ptr(sin),
         shift.data_ptr(), out.data_ptr(), b, s, kv, num_heads, d, rope_bstride,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), launch["consumers"], launch["stages"], launch["smem_bytes"],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, NAME_LONG)
     _build.LAUNCHES[NAME_LONG] += 1

@@ -11,10 +11,10 @@ running sum ``l`` f32 ``[B, H, Sq]``, unnormalised output ``acc`` f32
 it in place and returns it; after the last step the caller returns
 ``acc / l`` in q's dtype.
 
-The kernel is the ``RING = true`` instance of the attention template in
-``csrc/flash_attention_packed.cu`` (its source note says what bounds it).
-CPU tensors take ``ring_chunk_update_plain``; CUDA tensors launch the
-kernel or raise.
+The kernel is the ring mode of K1's Hopper kernel,
+``csrc/flash_attention_hopper.cu`` (its source note says what bounds it),
+launched as ``flash_attention_packed.launch_params`` decides.  CPU tensors
+take ``ring_chunk_update_plain``; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .flash_attention_packed import launch_params
 
 NAME = "ring_chunk_update"
 HEAD_DIMS = (64, 128)
@@ -97,10 +98,11 @@ def ring_chunk_update(q, k, v, m, l, acc, *, num_heads: int, scale: float):
         return ring_chunk_update_plain(q, k, v, m, l, acc, num_heads=num_heads, scale=scale)
     _check(q, k, v, m, l, acc, num_heads)
     b, sq, hd = q.shape
+    launch = launch_params(hd // num_heads, "ring")
     err = _build.lib().cvt_ring_chunk_update(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-        b, sq, k.shape[1], num_heads, hd // num_heads, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, sq, k.shape[1], num_heads, hd // num_heads, float(scale), launch["consumers"],
+        launch["stages"], launch["smem_bytes"], torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1

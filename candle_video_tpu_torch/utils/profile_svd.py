@@ -20,11 +20,11 @@ import torch
 
 from .profile_dit import cuda_ms, kernel_ms
 
-# kernel-name fragments -> kind, first match wins; K6 is a template
-# instance of csrc/flash_attention_packed.cu (the last flag is ROPE), K1
-# csrc/flash_attention_hopper.cu; cuDNN's convolutions are implicit GEMMs
+# kernel-name fragments -> kind, first match wins; K6 is
+# csrc/flash_attention_packed.cu's kernel, K1
+# csrc/flash_attention_hopper.cu's; cuDNN's convolutions are implicit GEMMs
 # named "fprop"
-KINDS = (("K6", "flash_attention_packed_kernel<64, false, false, false>"),
+KINDS = (("K6", "flash_attention_kernel<64>"),
          ("K1", "flash_attention_hopper_kernel"),
          ("conv", "fprop"), ("conv", "conv"), ("conv", "cudnn"),
          ("matmul", "gemm"), ("matmul", "nvjet"), ("matmul", "cutlass"))

@@ -316,16 +316,18 @@ def check_k1(card):
 K1_BREAK = ("o[r] *= alpha[(r >> 1) & 1];", "o[r] *= 1.f;")
 
 
-# the broken K2: the shift moves from tile to tile (m + tile index), so the
-# key tiles' partial sums no longer add up to one softmax
-K2_BREAK = ("const float p = exp2f((val - mfix) * LOG2E);",
-            "const float p = exp2f((val - (mfix + (float)it)) * LOG2E);")
+# the broken K2: the shift moves from tile to tile (m + tile index, in log2
+# units), so the key tiles' partial sums no longer add up to one softmax
+K2_BREAK = ("const float tile_shift = mfix;", "const float tile_shift = mfix + (float)it;")
+# K2 with the SFU's flush-to-zero exp2: p under 2^-126 becomes 0, which the
+# case whose rows lie ~81 nats under the shift must catch
+K2_FTZ = ("const float p = ex2_sub(sc[r]);", "const float p = ex2(sc[r]);")
 
 
 # the broken K5: each CTA drops the carried running sum l (starts it at 0),
 # so after more than one ring step the output is normalised by the last
 # chunks' sums only
-K5_BREAK = ("l[r] = lane % 4 == 0 ? l_st[st0 + 8 * r] : 0.f;", "l[r] = 0.f;")
+K5_BREAK = ("l[i] = lane % 4 == 0 ? l_st[st0 + 8 * i] : 0.f;", "l[i] = 0.f;")
 
 
 def broken_copy(tag, substitution, fn, source="flash_attention_packed.cu"):
@@ -352,11 +354,32 @@ def broken_copy(tag, substitution, fn, source="flash_attention_packed.cu"):
         _build.CSRC, _build.BUILD_DIR, _build._lib = saved
 
 
+FAR_UNDER = "(far) 1x1000x8320x32x64, rows ~81 nats under the shift"
+
+
+def far_under_shift_qk(g, b, s, kv, h, d, dev):
+    """q and k whose scores, for every q row but the first, lie ~81 nats
+    under K2's shift: the keys of a head cluster around a unit direction u
+    (6u + noise), the rows point against it at 62.7 (scores near -41 nats
+    at D = 64), and the first row along it at 60 lifts the Cauchy-Schwarz
+    bound past its clip of 40.  Their p are subnormal f32."""
+    u = torch.randn(h, d, generator=g, device=dev)
+    u /= u.norm(dim=-1, keepdim=True)
+    k = 6 * u + 0.2 * torch.randn(b, kv, h, d, generator=g, device=dev)
+    q = -(47 * 8 / 6) * u + 0.2 * torch.randn(b, s, h, d, generator=g, device=dev)
+    q[:, 0] = 60 * u
+    return q.reshape(b, s, h * d).bfloat16(), k.reshape(b, kv, h * d).bfloat16()
+
+
 def check_k2(card):
     """K2 against its plain version at the 257-frame path's shape (and the
-    13B head width, and a ragged biased case just over the route's
-    threshold), timed beside K1 and SDPA on the same inputs; then the
-    broken copy, which must fail the limits."""
+    13B head width, a ragged biased case just over the route's threshold,
+    and a case whose rows lie ~81 nats under the fixed shift, where p is
+    subnormal), timed through the wrapper (``ms``), alone on a precomputed
+    shift (``kernel_ms``) and its torch shift alone (``shift_ms``), beside
+    K1 and SDPA on the same inputs; then the broken copy, which must fail
+    the limits, and a copy on the flush-to-zero exp2, which must fail the
+    far-under case."""
     from candle_video_tpu_torch.ops.kernels import flash_attention_packed as FA
     from candle_video_tpu_torch.ops.rope import apply_rotary_emb, rope_cos_sin
 
@@ -366,20 +389,24 @@ def check_k2(card):
     # (label, B, S, K, H, D, bias, rope): the path's shape first
     cases = [("path 1x12672x32x64 rope 257f", 1, 12672, 12672, 32, 64, False, True),
              ("1x12672x32x128 rope 257f", 1, 12672, 12672, 32, 128, False, True),
-             # K_pad 8320 > 8192; 1 of the last tile's 64 key slots is a key
-             ("ragged K=8257 bias rope", 2, 1000, 8257, 32, 64, True, True)]
+             # K_pad 8320 > 8192; 1 of the last tile's 128 key slots is a key
+             ("ragged K=8257 bias rope", 2, 1000, 8257, 32, 64, True, True),
+             (FAR_UNDER, 1, 1000, 8320, 32, 64, False, False)]
     inputs = {}
     for label, b, s, kv, h, d, with_bias, with_rope in cases:
         q = torch.randn(b, s, h * d, generator=g, device=dev).mul_(2).bfloat16()
         k = torch.randn(b, kv, h * d, generator=g, device=dev).bfloat16()
         v = torch.randn(b, kv, h * d, generator=g, device=dev).bfloat16()
+        if label == FAR_UNDER:
+            q, k = far_under_shift_qk(g, b, s, kv, h, d, dev)
         bias = None
         if with_bias:
             keep = torch.rand(b, kv, generator=g, device=dev) > 0.3
             bias = ((~keep).float() * -10000.0)[:, None, None, :].contiguous()
+        rope = None
         if s == 12672:
             rope = path_rope(33, h, d, dev)
-        else:
+        elif with_rope:
             rope = rope_cos_sin(torch.rand(1, s, 3, generator=g, device=dev), h * d)
         if s == kv:
             k = apply_rotary_emb(k, *rope)  # the path hands the kernel a rotated k
@@ -392,39 +419,55 @@ def check_k2(card):
         err = errors(got, want)
         k1_err = errors(FA.flash_attention_packed_onepass(q, k, v, **args), want)
         ms = cuda_ms(lambda: FA.flash_attention_packed_long(q, k, v, **args))
+        shift_ms = cuda_ms(lambda: FA.long_shift(q, k, num_heads=h, scale=d ** -0.5, bias=bias))
+        shift = FA.long_shift(q, k, num_heads=h, scale=d ** -0.5, bias=bias).contiguous()
+        kernel_ms = cuda_ms(lambda: FA.launch_long(q, k, v, shift, **args))
         k1_ms = cuda_ms(lambda: FA.flash_attention_packed_onepass(q, k, v, **args))
         plain_ms = cuda_ms(lambda: FA.flash_attention_packed_long_plain(q, k, v, **args),
                            iters=3, warmup=1)
         library_ms = sdpa_ms(q, k, v, h, d ** -0.5, bias, rope)
-        row = dict(label=label, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   k1_rel=k1_err["rel"], **err,
-                   **attention_bound(b, s, kv, h, d, with_bias, True))
-        tflops = 4.0 * b * h * s * kv * d / ms / 1e9
+        row = dict(label=label, ms=ms, kernel_ms=kernel_ms, shift_ms=shift_ms, k1_ms=k1_ms,
+                   plain_ms=plain_ms, library_ms=library_ms, k1_rel=k1_err["rel"], **err,
+                   **attention_bound(b, s, kv, h, d, with_bias, rope is not None))
+        tflops = 4.0 * b * h * s * kv * d / kernel_ms / 1e9
         log(f"[K2] {label}: max_abs={err['max_abs']:.3e} scaled={err['scaled']:.3e} "
-            f"rel={err['rel']:.3e} kernel={ms:.3f} ms ({tflops:.1f} TFLOP/s, "
-            f"{row['bound_ms'] / ms:.1%} of the {row['bound_ms']:.3f} ms bound, "
-            f"{row['bound_by']}) K1={k1_ms:.3f} ms (rel {k1_err['rel']:.3e}) "
-            f"sdpa={library_ms:.3f} ms plain={plain_ms:.2f} ms | {card}")
+            f"rel={err['rel']:.3e} wrapper={ms:.3f} ms = shift {shift_ms:.3f} ms + kernel "
+            f"{kernel_ms:.3f} ms ({tflops:.1f} TFLOP/s, {row['bound_ms'] / kernel_ms:.1%} of "
+            f"the {row['bound_ms']:.3f} ms bound, {row['bound_by']}) K1={k1_ms:.3f} ms "
+            f"(rel {k1_err['rel']:.3e}) sdpa={library_ms:.3f} ms plain={plain_ms:.2f} ms "
+            f"| {card}")
         if not (err["scaled"] <= K2_TOL["scaled"] and err["rel"] <= K2_TOL["rel"]):
             raise AssertionError(f"K2 {label} disagrees with its plain version: {err}")
         rows.append(row)
         inputs[label] = (q, k, v, args, want)
     RESULTS["k2"] = rows
 
-    def run_broken():
-        out = {}
-        for label, (q, k, v, args, want) in inputs.items():
-            out[label] = errors(FA.flash_attention_packed_long(q, k, v, **args), want)
-            torch.cuda.synchronize()
-        return out
+    def run_copy(labels):
+        def run():
+            out = {}
+            for label in labels:
+                q, k, v, args, want = inputs[label]
+                out[label] = errors(FA.flash_attention_packed_long(q, k, v, **args), want)
+                torch.cuda.synchronize()
+            return out
+        return run
 
-    broken = broken_copy("k2", K2_BREAK, run_broken)
+    broken = broken_copy("k2", K2_BREAK, run_copy(list(inputs)),
+                         source="flash_attention_hopper.cu")
     for label, err in broken.items():
         log(f"[K2 broken: per-tile shift] {label}: rel={err['rel']:.3e} "
             f"scaled={err['scaled']:.3e} | {card}")
         if err["scaled"] <= K2_TOL["scaled"] and err["rel"] <= K2_TOL["rel"]:
             raise AssertionError(f"the broken K2 passes the limits at {label}: {err}")
     RESULTS["k2_broken"] = broken
+    ftz = broken_copy("k2_ftz", K2_FTZ, run_copy([FAR_UNDER]),
+                      source="flash_attention_hopper.cu")
+    err = ftz[FAR_UNDER]
+    log(f"[K2 on ex2.approx.ftz] {FAR_UNDER}: rel={err['rel']:.3e} scaled={err['scaled']:.3e} "
+        f"| {card}")
+    if err["scaled"] <= K2_TOL["scaled"] and err["rel"] <= K2_TOL["rel"]:
+        raise AssertionError(f"K2 on the flush-to-zero exp2 passes the far-under case: {err}")
+    RESULTS["k2_ftz"] = ftz
     return rows[0]
 
 
@@ -539,7 +582,7 @@ def check_k5(card):
             res[label] = errors(out, want)
         return res
 
-    broken = broken_copy("k5", K5_BREAK, run_broken)
+    broken = broken_copy("k5", K5_BREAK, run_broken, source="flash_attention_hopper.cu")
     for label, err in broken.items():
         multi = not label.startswith("(a)")
         log(f"[K5 broken: carried l dropped] {label}: rel={err['rel']:.3e} "
@@ -1720,13 +1763,13 @@ def main() -> int:
     kernels = [
         entry("flash_attention_packed", "flash_attention_hopper.cu",
               "flash_attention_packed.py:543", launches["flash_attention_packed"], k1),
-        entry("flash_attention_packed_long", "flash_attention_packed.cu",
+        entry("flash_attention_packed_long", "flash_attention_hopper.cu",
               "flash_attention_packed.py:392", launches_long["flash_attention_packed_long"], k2),
         entry("w8_matmul", "int8_weight_matmul.cu", "int8_weight_matmul.py:82",
               launches["w8_matmul"], k3),
         entry("w4_matmul", "int4_weight_matmul.cu", "int4_weight_matmul.py:205",
               launches_13b["w4_matmul"], k4),
-        entry("ring_chunk_update", "flash_attention_packed.cu", "ring_chunk.py:91",
+        entry("ring_chunk_update", "flash_attention_hopper.cu", "ring_chunk.py:91",
               launches_sp["ring_chunk_update"], k5),
         entry("flash_attention", "flash_attention_packed.cu", "flash_attention.py:175",
               launches_svd["flash_attention"], k6),
@@ -1736,6 +1779,7 @@ def main() -> int:
               launches_k8["conv3d_igemm"], k8),
     ]
     kernels[-1]["kernel_ms"] = k8["kernel_ms"]  # K8 alone, beside its wrapper's ms
+    kernels[1].update(kernel_ms=k2["kernel_ms"], shift_ms=k2["shift_ms"])  # K2 alone, its shift
     RESULTS.update(card=card, kernels=kernels)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1)

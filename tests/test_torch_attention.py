@@ -4,7 +4,12 @@ in f32.
 
 The port's wrapper takes its plain version for CPU tensors; the JAX side
 runs the Pallas kernel in interpret mode and its f32 XLA oracle.
-Tolerance: max-abs <= 2e-5 (f32 softmax on both sides, same formula)."""
+Tolerance: max-abs <= 2e-5 (f32 softmax on both sides, same formula).
+
+The card's schedules of K1 and K2 (the online and fixed-shift modes of
+``csrc/flash_attention_hopper.cu``: 128-key tiles, log2 units, bf16 p) are
+emulated in torch and held against the plain versions and the JAX kernels
+at ``chip_smoke.py``'s limits, beside the launch all modes share."""
 
 import importlib
 
@@ -421,3 +426,145 @@ def test_k1_schedule_emulated_matches_plain(rng, s, kv, h, d, with_bias, with_ro
     dd = got.float() - want.float()
     assert float((dd.abs() / want.float().abs().clamp_min(1.0)).max()) <= K1_TOL["scaled"]
     assert float(dd.norm() / want.float().norm()) <= K1_TOL["rel"]
+
+
+# ---------------------------------------------------------------------------
+# K2 on Hopper: the fixed-shift mode of csrc/flash_attention_hopper.cu.  Its
+# schedule emulated in torch against the plain version and the JAX kernel
+# in interpret mode, and the launch every mode shares.
+# ---------------------------------------------------------------------------
+
+# K2 against its plain version on the card (chip_smoke.py): K1's limits
+K2_TOL = dict(scaled=8e-3, rel=4e-3)
+
+
+def _emulate_k2(q, k, v, num_heads, scale, bias=None, rope_q=None, ftz=False):
+    """K2's schedule in torch: the shift of ``long_shift`` (on q before its
+    rotation) read once per (batch, head) in log2 units, q rotated in f32
+    and rounded to bf16, 128-key tiles, p = exp2(s·scale·log2e +
+    bias·log2e − shift·log2e) with keys >= K at -1e30, l += Σp in f32, p
+    rounded to bf16 for P·V, no max and no rescale, one divide by l, bf16
+    out.  ``ftz`` flushes subnormal p to 0, as ``ex2.approx.ftz`` would."""
+    from candle_video_tpu_torch.ops.rope import apply_rotary_emb
+
+    shift = FAP.long_shift(q, k, num_heads=num_heads, scale=scale, bias=bias)
+    if rope_q is not None:
+        q = apply_rotary_emb(q.float(), rope_q[0], rope_q[1]).to(torch.bfloat16)
+    b, s, hd = q.shape
+    kv, d = k.shape[1], hd // num_heads
+    m = shift.repeat_interleave(128 // d, dim=1)[:, :, None, None] * LOG2E  # [B, H, 1, 1]
+    qf = q.reshape(b, s, num_heads, d).float().transpose(1, 2)
+    kf = k.reshape(b, kv, num_heads, d).float().transpose(1, 2)
+    vf = v.reshape(b, kv, num_heads, d).float().transpose(1, 2)
+    block = FAP.launch_params(d, "fixed")["block_k"]
+    l = torch.zeros(b, num_heads, s, 1)
+    o = torch.zeros(b, num_heads, s, d)
+    for k0 in range(0, kv, block):
+        keys = torch.arange(k0, k0 + block)
+        kt = torch.zeros(b, num_heads, block, d)
+        vt = torch.zeros(b, num_heads, block, d)
+        n = min(block, kv - k0)  # TMA zero-fills the tile past K
+        kt[:, :, :n], vt[:, :, :n] = kf[:, :, k0:k0 + n], vf[:, :, k0:k0 + n]
+        sc = (qf @ kt.transpose(-1, -2)) * (scale * LOG2E)
+        if bias is not None:
+            bk = torch.zeros(b, block)
+            bk[:, :n] = bias.reshape(b, kv)[:, k0:k0 + n].float() * LOG2E
+            sc = sc + bk[:, None, None, :]
+        sc = torch.where(keys < kv, sc - m, torch.tensor(-1e30))
+        p = torch.exp2(sc)
+        if ftz:
+            p = torch.where(p < 2.0 ** -126, torch.zeros(()), p)
+        l = l + p.sum(-1, keepdim=True)
+        o = o + p.to(torch.bfloat16).float() @ vt
+    return (o / l).transpose(1, 2).reshape(b, s, hd).to(torch.bfloat16)
+
+
+def _bf16_inputs(rng, b, s, kv, h, d, with_bias, with_rope):
+    """``_inputs`` as the card gets them: q·2, k, v in bf16 (k rotated when
+    q is and S = K, as in a self-attention), bias and tables in f32."""
+    q, k, v, bias, rope = _inputs(rng, b, s, kv, h, d, with_bias, with_rope)
+    rope = None if rope is None else (_t(rope[0]), _t(rope[1]))
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in (q * 2, k, v))
+    if rope is not None and s == kv:  # the path hands the kernel a rotated k
+        k = PR.apply_rotary_emb(k.float(), *rope).bfloat16()
+    return q, k, v, _t(bias), rope
+
+
+def _assert_within(got, want, tol):
+    dd = got.float() - want.float()
+    assert float((dd.abs() / want.float().abs().clamp_min(1.0)).max()) <= tol["scaled"]
+    assert float(dd.norm() / want.float().norm()) <= tol["rel"]
+
+
+@pytest.mark.parametrize("s,kv,h,d,with_bias,with_rope", [
+    (200, 65, 4, 64, True, False),     # K = 65: one tile, 63 slots of padding
+    (130, 129, 4, 64, True, False),    # K = 129: one key past a tile
+    (257, 300, 2, 128, False, True),   # D = 128, q RoPE, ragged S
+    (77, 1000, 4, 64, True, True),     # biased, ragged S and K, eight tiles
+], ids=["K65", "K129", "d128_rope", "bias_rope"])
+def test_k2_schedule_emulated_matches_plain(rng, s, kv, h, d, with_bias, with_rope):
+    q, k, v, bias, rope = _bf16_inputs(rng, 2, s, kv, h, d, with_bias, with_rope)
+    args = dict(num_heads=h, scale=d ** -0.5, bias=bias, rope_q=rope)
+    _assert_within(_emulate_k2(q, k, v, **args),
+                   FAP.flash_attention_packed_long_plain(q, k, v, **args), K2_TOL)
+
+
+@pytest.mark.parametrize("kv,with_bias,with_rope", [
+    (1000, False, True),   # in-kernel q rotation, ragged last tile
+    (300, True, False),    # a -1e4 key mask folded into the shift
+], ids=["rope_q", "bias_kv300"])
+def test_k2_schedule_emulated_matches_pallas_long_interpret(rng, kv, with_bias, with_rope):
+    b, s, h, d = 1, 200, 4, 64
+    q, k, v, bias, rope = _bf16_inputs(rng, b, s, kv, h, d, with_bias, with_rope)
+    args = dict(num_heads=h, scale=d ** -0.5, bias=bias, rope_q=rope)
+    f32 = lambda t: None if t is None else jnp.asarray(t.float().numpy())  # noqa: E731
+    want = JFAP._packed_long(
+        f32(q), f32(k), f32(v), num_heads=h, scale=d ** -0.5, bias=f32(bias),
+        rope_q=None if rope is None else tuple(map(f32, rope)),
+        block_q=128, block_k=256, interpret=True)
+    _assert_within(_emulate_k2(q, k, v, **args), torch.from_numpy(np.array(want)), K2_TOL)
+
+
+def test_k2_schedule_keeps_subnormal_p_far_under_the_shift():
+    """Rows whose scores lie ~81 nats under the shift (the bound clipped at
+    40, the realised row max near -41): their p are subnormal f32.  Kept
+    (the kernel's ex2.approx.f32), the schedule holds K2's limits; flushed
+    (ex2.approx.ftz), it drops most of those rows' mass."""
+    rng = np.random.default_rng(47)
+    b, s, kv, h, d = 1, 128, 8320, 2, 64
+    u = rng.normal(size=(h, d))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    k = 6 * u + 0.2 * rng.normal(size=(b, kv, h, d))
+    q = -(47 * 8 / 6) * u + 0.2 * rng.normal(size=(b, s, h, d))
+    q[:, 0] = 60 * u  # one aligned row lifts the bound past the clip
+    q, k, v = (torch.from_numpy(x.reshape(b, x.shape[1], h * d)).bfloat16()
+               for x in (q, k, rng.normal(size=(b, kv, h, d))))
+    args = dict(num_heads=h, scale=d ** -0.5)
+    shift = FAP.long_shift(q, k, **args)
+    assert float(shift.min()) == FAP._BOUND_CLIP
+    rowmax = (q.float().view(b, s, h, d).transpose(1, 2) @
+              k.float().view(b, kv, h, d).permute(0, 2, 3, 1)).amax(-1) * d ** -0.5
+    assert float(rowmax[:, :, 1:].max()) < -39.0  # ~80 nats under the shift
+    want = FAP.flash_attention_packed_long_plain(q, k, v, **args)
+    _assert_within(_emulate_k2(q, k, v, **args), want, K2_TOL)
+    flushed = _emulate_k2(q, k, v, **args, ftz=True).float()
+    assert float((flushed - want.float()).norm() / want.float().norm()) > K2_TOL["rel"]
+
+
+@pytest.mark.parametrize("mode", FAP.MODES)
+@pytest.mark.parametrize("d", [64, 128])
+def test_launch_params_fit_the_card_in_every_mode(mode, d):
+    p = FAP.launch_params(d, mode)
+    assert p["smem_bytes"] <= FAP.SMEM_LIMIT
+    assert p == FAP.k1_launch_params(d)  # one launch for all three modes: K1's
+
+
+@pytest.mark.parametrize("mode", FAP.MODES)
+def test_launch_params_refuse_other_widths(mode):
+    with pytest.raises(ValueError, match="head dim 32"):
+        FAP.launch_params(32, mode)
+
+
+def test_launch_params_refuse_other_modes():
+    with pytest.raises(ValueError, match="mode 'causal'"):
+        FAP.launch_params(64, "causal")

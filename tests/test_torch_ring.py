@@ -6,6 +6,10 @@ against the JAX package on the CPU.
   lane-packed ``stat`` as ``ops/ring.py`` reads them: one step and a 3-step
   recurrence, D 64 and 128, ragged Sc; f32 at atol = rtol = 1e-4, bf16 at
   rel <= 4e-3 (p rounds to bf16 on both sides, summation orders differ).
+- K5's schedule on the card (the ring mode of
+  ``csrc/flash_attention_hopper.cu``: the state seeded in log2 units, a
+  running max across 128-key tiles, bf16 p) emulated in torch against the
+  plain version and the JAX kernel at ``chip_smoke.py``'s K5 limits.
 - ``ring_attention`` and ``sequence_parallel_attention`` in gloo rings of 2
   and 4 ranks against the JAX functions on the virtual 8-device mesh at
   1e-4; the port's ring (K5's plain version on the CPU) is held against both
@@ -262,6 +266,109 @@ def test_k5_cuda_route_checks(bad, exc, match):
         acc = acc.double()
     with pytest.raises(exc, match=match):
         K5._check(q, k, v, m, l, acc, heads)
+
+
+# ---------------------------------------------------------------------------
+# K5 on Hopper: the ring mode of csrc/flash_attention_hopper.cu, its schedule
+# emulated in torch against the plain version and the JAX kernel
+# ---------------------------------------------------------------------------
+
+# K5 against its plain version on the card (chip_smoke.py): m and l see only
+# f32 summation order, acc carries the bf16 p
+K5_TOL = dict(m_scaled=1e-5, l_rel=1e-5, acc_rel=4e-3)
+LOG2E = 1.4426950408889634
+
+
+def _emulate_k5(q, k, v, m, l, acc, *, num_heads, scale):
+    """K5's schedule in torch, in place: the carried (m, l, acc) seed the
+    running state, m in log2 units (m·log2e); 128-key tiles, scores
+    s·scale·log2e with keys >= Sc at -1e30, the running max across tiles,
+    p rounded to bf16 for P·V, O and l rescaled by exp2(m_old - m_new); the
+    state written back unnormalised, m in natural units."""
+    from candle_video_tpu_torch.ops.kernels.flash_attention_packed import launch_params
+
+    b, sq, hd = q.shape
+    sc_len, d = k.shape[1], hd // num_heads
+    block = launch_params(d, "ring")["block_k"]
+    qf = q.reshape(b, sq, num_heads, d).float().transpose(1, 2)
+    kf = k.reshape(b, sc_len, num_heads, d).float().transpose(1, 2)
+    vf = v.reshape(b, sc_len, num_heads, d).float().transpose(1, 2)
+    mm = m[..., None] * LOG2E
+    ll = l[..., None].clone()
+    o = acc.view(b, sq, num_heads, d).transpose(1, 2).clone()
+    for k0 in range(0, sc_len, block):
+        keys = torch.arange(k0, k0 + block)
+        kt = torch.zeros(b, num_heads, block, d)
+        vt = torch.zeros(b, num_heads, block, d)
+        n = min(block, sc_len - k0)  # TMA zero-fills the tile past Sc
+        kt[:, :, :n], vt[:, :, :n] = kf[:, :, k0:k0 + n], vf[:, :, k0:k0 + n]
+        sc = torch.where(keys < sc_len, (qf @ kt.transpose(-1, -2)) * (scale * LOG2E),
+                         torch.tensor(-1e30))
+        m_new = torch.maximum(mm, sc.amax(-1, keepdim=True))
+        alpha = torch.exp2(mm - m_new)
+        p = torch.exp2(sc - m_new)
+        ll = ll * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ vt
+        mm = m_new
+    m.copy_(mm[..., 0] * (1.0 / LOG2E))
+    l.copy_(ll[..., 0])
+    acc.copy_(o.transpose(1, 2).reshape(b, sq, hd))
+    return m, l, acc
+
+
+def _state_within(got, want, tol=K5_TOL):
+    (gm, gl, ga), (wm, wl, wa) = got, want
+    assert float(((gm - wm).abs() / wm.abs().clamp_min(1.0)).max()) <= tol["m_scaled"]
+    assert float((gl - wl).norm() / wl.norm()) <= tol["l_rel"]
+    assert float((ga - wa).norm() / wa.norm()) <= tol["acc_rel"]
+
+
+def _ring_inputs(seed, steps, b, sq, sc, h, d):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(b, sq, h * d)) * 2).bfloat16()
+    kvs = [tuple(torch.from_numpy(rng.normal(size=(b, sc, h * d))).bfloat16()
+                 for _ in range(2)) for _ in range(steps)]
+    return q, kvs
+
+
+@pytest.mark.parametrize("steps,b,sq,sc,h,d", [
+    (2, 2, 100, 65, 4, 64),     # Sc = 65: one tile, 63 slots of padding; ragged Sq
+    (3, 1, 130, 129, 2, 64),    # Sc = 129: one key past a tile, 3 steps
+    (2, 2, 64, 300, 2, 128),    # D = 128, three tiles a step
+], ids=["sc65_ragged_q", "sc129_3step", "d128"])
+def test_k5_schedule_emulated_matches_plain(steps, b, sq, sc, h, d):
+    """The state after every step within chip_smoke.py's K5 limits."""
+    q, kvs = _ring_inputs(steps * 10 + d, steps, b, sq, sc, h, d)
+    got, want = K5.init_ring_state(b, sq, h, d), K5.init_ring_state(b, sq, h, d)
+    args = dict(num_heads=h, scale=d ** -0.5)
+    for k, v in kvs:
+        _emulate_k5(q, k, v, *got, **args)
+        K5.ring_chunk_update_plain(q, k, v, *want, **args)
+        _state_within(got, want)
+
+
+@pytest.mark.parametrize("steps,sq,sc,h,d", [
+    (2, 40, 129, 4, 64),
+    (3, 24, 100, 2, 128),
+], ids=["2step_sc129", "3step_d128"])
+def test_k5_schedule_emulated_matches_pallas_interpret(steps, sq, sc, h, d):
+    """Against JAX ``ring_chunk_update`` in interpret mode on the same
+    bf16-valued inputs in f32, m and l read out of its lane-packed stat."""
+    import jax.numpy as jnp
+
+    from candle_video_tpu.ops.pallas import ring_chunk as JK5
+
+    b = 2
+    q, kvs = _ring_inputs(steps * 7 + d, steps, b, sq, sc, h, d)
+    f32 = lambda t: jnp.asarray(t.float().numpy())  # noqa: E731
+    stat, jacc = JK5.init_ring_state(b, sq, h * d)
+    state = K5.init_ring_state(b, sq, h, d)
+    for k, v in kvs:
+        stat, jacc = JK5.ring_chunk_update(f32(q), f32(k), f32(v), stat, jacc, num_heads=h,
+                                           scale=d ** -0.5, interpret=True)
+        _emulate_k5(q, k, v, *state, num_heads=h, scale=d ** -0.5)
+        jm, jl = _unpack_stat(stat, h, d)
+        _state_within(state, tuple(torch.from_numpy(np.array(x)) for x in (jm, jl, jacc)))
 
 
 # ---------------------------------------------------------------------------
