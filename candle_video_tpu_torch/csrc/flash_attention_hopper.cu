@@ -15,9 +15,9 @@
 //   H = 32, D = 64) one call is 4*S*K*D*H = 204 GFLOP, 0.206 ms at the
 //   989 TFLOP/s bf16 peak, against 80 MB of q/k/v/out (0.024 ms at
 //   3.35 TB/s); at the 13B shape (D = 128) 408 GFLOP, 0.413 ms.  The earlier
-//   mma.sync design (flash_attention_packed.cu's template) reached a fifth
-//   of that: mma.sync cannot reach the wgmma rate, and every thread spent
-//   issue slots on cp.async copies and fragment loads.
+//   mma.sync design reached a fifth of that: mma.sync cannot reach the
+//   wgmma rate, and every thread spent issue slots on cp.async copies and
+//   fragment loads.
 //
 // What the design does about it: one CTA owns 64 * CONS q rows of one
 //   (batch, head) and runs CONS + 1 warpgroups.  The producer (warpgroup 0,
@@ -42,6 +42,9 @@
 //   their limits hold.  The output is divided by l once and stored as bf16.
 //   Not yet: softmax overlapped with the next Q K^T, ping-pong between the
 //   consumers, a TMA store of the output.
+//   The earlier mma.sync design of K1, K2, K5 and K6 (one template, 64-key
+//   tiles double-buffered by cp.async, fragments by ldmatrix) peaked at about
+//   a quarter of its bound and is gone.
 //
 // K2, the long-sequence kernel, is the same kernel in the FIXED mode.
 // Replaces: candle_video_tpu/ops/pallas/flash_attention_packed.py:392,
@@ -92,8 +95,26 @@
 //   max first and merges once; this carries the running max across tiles,
 //   so p is rounded to bf16 against another shift (K1's limits hold).
 //
-// The modes share everything up to the scores; K6 (no q rotation, any H)
-// is still on flash_attention_packed.cu's mma.sync template.
+// K6, classic flash attention over [B, S, H, D], is the same kernel in the
+// UNROTATED mode.
+// Replaces: candle_video_tpu/ops/pallas/flash_attention.py:175,
+//   flash_attention -> _fa_kernel (:41) and _fa_kernel_onepass (:108),
+//   pallas_call at :257: the TPU's route for heads that do not fill 128-lane
+//   groups, which carries the SVD UNet's level-0 self-attention (5 heads of
+//   64).  Same function: non-causal softmax(q k^T * scale + bias) v with the
+//   true running row max, an optional f32 key bias [B, 1, 1, K], p rounded
+//   to bf16 before P*V, f32 accumulation, bf16 out.  [B, S, H, D] lies in
+//   memory as [B, S, H*D] with any H, which is K1's layout: the TMA boxes
+//   sit at column h*D, the consumers load q by stride, and H enters only
+//   through H*D and gridDim.y (at H = 5, D = 64 a row is 640 bytes, which
+//   TMA's 16-byte stride rule takes).
+// What bounds it: arithmetic.  At the SVD path shape (B = 28 frames of a
+//   CFG pair, S = K = 9216, H = 5, D = 64) one call is 3.04 TFLOP, 3.08 ms
+//   at the bf16 peak; q/k/v/out are 0.66 GB, 0.2 ms at 3.35 TB/s.
+// What the design does about it: K1's online mode as it is, with the q
+//   rotation compiled out.  Its own mode value makes it a template instance
+//   of its own (flash_attention_hopper_kernel<64, 3, 3, 3> on the SVD path),
+//   so a profile tells K6 from K1 by the kernel's name.
 
 #include <cuda_bf16.h>
 
@@ -110,8 +131,9 @@ constexpr float NEG = -1e30f;
 
 // What the softmax does with the scores, the kernel's fourth template
 // parameter: K1's running max (ONLINE), K2's fixed shift (FIXED), K5's
-// running max seeded from and written back to the carried state (RING).
-enum Mode : int { ONLINE = 0, FIXED = 1, RING = 2 };
+// running max seeded from and written back to the carried state (RING), and
+// K6's, which is ONLINE that never rotates q (UNROTATED).
+enum Mode : int { ONLINE = 0, FIXED = 1, RING = 2, UNROTATED = 3 };
 
 // One CTA at head width D: CONS consumer warpgroups of 64 q rows each and
 // a ring of STAGES key tiles, both chosen by the host
@@ -158,8 +180,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ONLINE and FIXED write out [B, S, H*D] bf16; FIXED reads shift [B, G];
-// RING reads and writes the state m_st, l_st [B, H, S] and acc_st
+// ONLINE, FIXED and UNROTATED write out [B, S, H*D] bf16; FIXED reads shift
+// [B, G]; RING reads and writes the state m_st, l_st [B, H, S] and acc_st
 // [B, S, H*D] (f32) and takes neither bias nor tables.
 template <int D, int CONS, int STAGES, int MODE>
 __global__ void __launch_bounds__(Cfg<D, CONS, STAGES>::THREADS, 1)
@@ -232,7 +254,7 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap kmap,
       uint4 val = make_uint4(0, 0, 0, 0);
       if (row < S) {
         val = *reinterpret_cast<const uint4*>(qb + (int64_t)row * HD + 8 * j);
-        if (MODE != RING && cos_t) {
+        if (MODE != RING && MODE != UNROTATED && cos_t) {
           const int64_t off =
               (int64_t)b * rope_bstride + (int64_t)row * HD + (int64_t)h * D + 8 * j;
           float cs[8], sn[8], x[8];
@@ -515,7 +537,7 @@ int dispatch(const void* q, const void* k, const void* v, const Args& a, int B, 
 }  // namespace
 
 // consumers, stages and smem_bytes are the host's launch parameters
-// (flash_attention_packed.py's launch_params), the same for all three modes.
+// (flash_attention_packed.py's launch_params), the same for all four modes.
 
 // K1: q [B, S, H*D], k, v [B, K, H*D] bf16; bias f32 [B, K] or null; cos,
 // sin f32 [1|B, S, H*D] or null (rope_bstride 0 or S*H*D); out [B, S, H*D]
@@ -555,4 +577,15 @@ extern "C" int cvt_ring_chunk_update(const void* q, const void* k, const void* v
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, m, l, acc};
   return dispatch<RING>(q, k, v, a, B, Sq, Sc, H, D, 0, scale, consumers, stages, smem_bytes,
                         stream);
+}
+
+// K6: q [B, S, H, D] (any H), k, v [B, K, H, D] bf16; bias f32 [B, K] or
+// null; out [B, S, H, D] bf16.
+extern "C" int cvt_flash_attention(const void* q, const void* k, const void* v,
+                                   const void* bias, void* out, int B, int S, int K, int H,
+                                   int D, float scale, int consumers, int stages,
+                                   int smem_bytes, void* stream) {
+  const Args a{bias, nullptr, nullptr, nullptr, out, nullptr, nullptr, nullptr};
+  return dispatch<UNROTATED>(q, k, v, a, B, S, K, H, D, 0, scale, consumers, stages,
+                             smem_bytes, stream);
 }

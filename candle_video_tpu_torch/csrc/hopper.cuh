@@ -1,17 +1,19 @@
 // Hopper (sm_90a) building blocks shared by the kernels rebuilt for the card
-// (K1, K2 and K5 in flash_attention_hopper.cu, K8 in conv3d_igemm.cu): TMA
-// tensor maps and loads, mbarrier rings, wgmma shared-memory descriptors and
-// the wgmma instructions they use, register reallocation.  Raw PTX, no
-// CUTLASS, so a translation unit builds in seconds.
+// (K1, K2, K5 and K6 in flash_attention_hopper.cu, K7 in int8_matmul.cu, K8
+// in conv3d_igemm.cu): TMA tensor maps and loads, mbarrier rings, wgmma
+// shared-memory descriptors and the wgmma instructions they use, register
+// reallocation.  Raw PTX, no CUTLASS, so a translation unit builds in
+// seconds.
 //
 // Layout contract between TMA and wgmma: every tile in shared memory is a
-// stack of 128-byte rows (64 bf16) written by TMA with
+// stack of 128-byte rows (64 bf16, or 128 int8) written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B, so the 16-byte chunk j of row r sits at
 // r * 128 + ((j ^ (r % 8)) * 16), and an 8-row group is 1024 bytes.  Tiles
 // start on 1024-byte boundaries, so the descriptors' base offset is 0.  A
-// K-major operand (K contiguous: q, k, x, the packed weight) advances 16
-// K-elements by adding 32 bytes to the start address; an MN-major operand
-// (v, read with the transpose bit) advances 16 K-rows by 2048 bytes.
+// K-major operand (K contiguous: q, k, x, the packed weight) advances one
+// instruction's K (16 bf16 or 32 int8: 32 bytes either way) by adding 32
+// bytes to the start address; an MN-major operand (v, read with the
+// transpose bit) advances 16 K-rows by 2048 bytes.
 
 #pragma once
 
@@ -160,6 +162,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -167,7 +175,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
     for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r])::"memory");
 }
 
-// Accumulator layout of m64nN (f32): thread t of the warpgroup holds rows
+// Accumulator layout of m64nN (f32, and s32 alike): thread t of the warpgroup holds rows
 // 16 * (t / 32) + (t % 32) / 4 + 8 * i and columns 8 * j + 2 * (t % 4) + e in
 // d[4 * j + 2 * i + e], the m16n8 C fragment of mma.sync repeated over N / 8.
 
@@ -236,6 +244,76 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A[64 x 32] . B[32 x 128] in int8 with s32 sums, A and B
+// K-major in shared memory (8-bit wgmma takes no transpose: K-major only)
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 256] (+)= A[64 x 32] . B[32 x 256] in int8 with s32 sums, A and B
+// K-major in shared memory (8-bit wgmma takes no transpose: K-major only)
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -312,22 +390,30 @@ static inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first, `strides` in bytes for
-// dims 1..rank-1) with a box of `box` elements, 128-byte swizzle, zero fill
-// out of bounds.  Returns 0 or a CUDA error code.
-static inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
-                                const uint64_t* dims, const uint64_t* strides,
-                                const uint32_t* box) {
+// A tensor map of `type` with `rank` dims (innermost first, `strides` in
+// bytes for dims 1..rank-1) and a box of `box` elements, 128-byte swizzle,
+// zero fill out of bounds.  TMA has no signed 8-bit type: int8 goes as
+// CU_TENSOR_MAP_DATA_TYPE_UINT8, which moves the same bytes and fills with
+// the byte 0, int8 zero.  Returns 0 or a CUDA error code.
+static inline int make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                           int rank, const uint64_t* dims, const uint64_t* strides,
+                           const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint32_t estride[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = fn(map, type, (cuuint32_t)rank,
                         const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
                         reinterpret_cast<const cuuint64_t*>(strides),
                         reinterpret_cast<const cuuint32_t*>(box), estride,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+static inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                                const uint64_t* dims, const uint64_t* strides,
+                                const uint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -56,16 +57,19 @@ _SIGNATURES = {
     # consumers, stages, shared memory bytes, stream
     "cvt_ring_chunk_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                               _I, _P],
-    # q, k, v, bias, out, B, S, K, H, D, scale, stream
-    "cvt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, bias, out, B, S, K, H, D, scale, consumers, stages, shared
+    # memory bytes, stream
+    "cvt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # x, w_q, s, bias, workspace, out, M, K, N, qblock, splits, k_per_split,
     # stream
     "cvt_w8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w_p, s, m, bias, workspace, out, M, K, N, qblock, scale_bf16, splits,
     # packed_rows_per_split, stream
     "cvt_w4_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x_q, s_x, w_q [N, K], s_w, bias (f32 or null), out, M, K, N, stream
-    "cvt_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x_q, s_x, w_q [N, K], s_w, bias (f32 or null), workspace (int32 or
+    # null), out, M, K (a multiple of 16), N, bn, stages, split, shared
+    # memory bytes, stream
+    "cvt_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x (NDHWC), w [27, O, C], bias (f32 or null), out, workspace (f32 or
     # null), B, T, H, W, C, O, time mode, bh, bw, bn, split, stream
     "cvt_conv3d_igemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -166,6 +170,14 @@ def lib():
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, which the host plans fill."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

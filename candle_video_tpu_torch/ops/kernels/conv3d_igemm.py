@@ -107,11 +107,6 @@ def plan_conv3d(b: int, t_out: int, h: int, w: int, c: int, o: int, sms: int) ->
                 ctas=tiles * split, waves=tiles * split / sms)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def pack_weight(weight):
     """[O, C, 3, 3, 3] -> [27, O, C] bf16, taps (dt, dh, dw) row-major, C
     contiguous: the kernel's second operand, K-major per output channel."""
@@ -165,7 +160,7 @@ def conv3d_igemm(x, weight, bias=None, causal: bool = True, time_pad: str = "edg
             raise ValueError(f"{NAME}: every input must be on {x.device}, 16-byte aligned")
     y = torch.empty((b, o, t_out, h, w), dtype=torch.bfloat16, device=x.device,
                     memory_format=torch.channels_last_3d)
-    plan = plan_conv3d(b, t_out, h, w, c, o, _sms(x.device.index))
+    plan = plan_conv3d(b, t_out, h, w, c, o, _build.sm_count(x.device.index))
     ws = None
     if plan["split"] > 1:
         ws = torch.empty((plan["split"], b * t_out * h * w, o), dtype=torch.float32,

@@ -10,10 +10,11 @@ tiling choices and are not carried: the kernel reads the natural layout
 with any H.  ``ops/attention.py`` sends it the shapes the lane-packed kernels
 do not take (``packed_viable`` false) above ``_SHORT_KV`` keys.
 
-The kernel is ``csrc/flash_attention_packed.cu`` (``cvt_flash_attention``),
-the ``mma.sync`` design K1, K2 and K5 have left for
-``csrc/flash_attention_hopper.cu``.  CPU tensors take the plain version;
-CUDA tensors launch the kernel or raise.
+The kernel is ``csrc/flash_attention_hopper.cu`` (``cvt_flash_attention``):
+K1's online mode without the q rotation, in a template instance of its own,
+on K1's launch (``flash_attention_packed.launch_params(d, "online")``).  Its
+128-key tiles mask the ragged key tail as K1's do.  CPU tensors take the
+plain version; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .flash_attention_packed import launch_params
 
 NAME = "flash_attention"
 HEAD_DIMS = (64, 128)
@@ -70,11 +72,12 @@ def flash_attention(q, k, v, *, scale: float, bias=None):
         return flash_attention_plain(q, k, v, scale=scale, bias=bias)
     _check(q, k, v, bias)
     b, s, h, d = q.shape
+    launch = launch_params(d, "online")
     out = torch.empty_like(q)
     err = _build.lib().cvt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), b, s, k.shape[1], h, d, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), b, s, k.shape[1], h, d, float(scale), launch["consumers"],
+        launch["stages"], launch["smem_bytes"], torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1

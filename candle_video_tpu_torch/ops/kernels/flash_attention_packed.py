@@ -17,8 +17,9 @@ the kernel (k arrives rotated) and ragged S/K masked.
 
 Both are modes of one kernel, ``csrc/flash_attention_hopper.cu`` (wgmma fed
 by a TMA ring), K1 the online mode and K2 the fixed-shift one; K5
-(``ring_chunk.py``) is its third mode.  ``launch_params`` decides the launch
-of all three.  The source note says what bounds each mode and how the
+(``ring_chunk.py``) is its third mode and K6 (``flash_attention.py``, the
+online mode without the q rotation) its fourth.  ``launch_params`` decides
+the launch of all four.  The source note says what bounds each mode and how the
 design answers.  CPU tensors take the plain versions; CUDA tensors launch a
 kernel or raise.
 """
@@ -45,14 +46,15 @@ SMEM_LIMIT = 232448
 
 
 # the modes of csrc/flash_attention_hopper.cu, in the order of its Mode enum:
-# K1's running max, K2's fixed shift, K5's carried ring state
+# K1's running max, K2's fixed shift, K5's carried ring state (K6's, the
+# fourth, is the online mode unrotated and takes the online launch)
 MODES = ("online", "fixed", "ring")
 
 
 def launch_params(head_dim: int, mode: str = "online") -> dict:
     """The launch of ``csrc/flash_attention_hopper.cu`` in ``mode`` at head
     width ``head_dim``, decided here and passed to the kernel, which refuses
-    a configuration it was not built for.  The three modes share the
+    a configuration it was not built for.  The modes share the
     producer, the ring, the q load and the QKᵀ, and so one launch:
     ``consumers`` warpgroups of 64 q rows (three at D = 64, two at D = 128)
     and a producer per CTA, and a ring of ``stages`` slots of one K and one

@@ -4,7 +4,8 @@ sequence-parallel ring of one, then on the W8A8 tier.
 At the shapes of a 512x768x97 request (S = 4992 video tokens, 128 caption
 tokens) on random weights from a seed: the forward's time by CUDA events,
 the device time by kernel name under ``torch.profiler``, the kernels' busy
-time and the idle share.  The ring runs in a one-rank NCCL group met
+time, the idle share and the device time by kind (K1, K5, K7, K3, cuBLAS's
+matmuls, the rest: the glue).  The ring runs in a one-rank NCCL group met
 through a FileStore in a temporary directory, so every self-attention goes
 through K5 instead of K1.  The W8A8 row quantizes the same weights in
 place (``quantize_transformer_w8a8``), so every block linear runs on K7
@@ -18,6 +19,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -38,6 +40,29 @@ def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+# kernel-name patterns -> kind, first match wins.  K1, K2, K5 and K6 are one
+# kernel, flash_attention_hopper_kernel<D, consumers, stages, mode>, told
+# apart by its mode (0 online, 1 fixed, 2 ring, 3 unrotated); K7 is the
+# W8A8 GEMM and its split-K pass; cuBLAS's are the "matmul" kind.
+KINDS = (("K1", r"flash_attention_hopper_kernel<\d+,\s*\d+,\s*\d+,\s*0>"),
+         ("K2", r"flash_attention_hopper_kernel<\d+,\s*\d+,\s*\d+,\s*1>"),
+         ("K5", r"flash_attention_hopper_kernel<\d+,\s*\d+,\s*\d+,\s*2>"),
+         ("K7", r"w8a8_matmul"), ("K3", r"w8_(matmul|finalize)_kernel"),
+         ("matmul", r"gemm|nvjet|cutlass"))
+
+
+def kind_of(name: str, kinds=KINDS) -> str:
+    return next((k for k, pat in kinds if re.search(pat, name, re.IGNORECASE)), "other")
+
+
+def kinds_ms(kernels: dict, kinds=KINDS) -> dict:
+    """Device milliseconds by kind from ``kernel_ms``' rows."""
+    out: dict = {}
+    for name, t in kernels.items():
+        out[kind_of(name, kinds)] = out.get(kind_of(name, kinds), 0.0) + t
+    return out
 
 
 def kernel_ms(prof) -> dict:
@@ -90,7 +115,7 @@ def profile(top: int = 12) -> dict:
                 kernels = kernel_ms(prof)
                 busy = sum(kernels.values())
                 rows[label] = dict(forward_ms=fwd_ms, kernels_busy_ms=busy,
-                                   idle_share=1 - busy / fwd_ms,
+                                   idle_share=1 - busy / fwd_ms, kinds_ms=kinds_ms(kernels),
                                    top_kernels_ms=sorted(kernels.items(),
                                                          key=lambda kv: -kv[1])[:top])
         finally:
@@ -107,8 +132,11 @@ def main(argv=None) -> int:
         return 2
     rows = profile()
     for label, row in rows.items():
+        kinds = ", ".join(f"{k} {v:.2f}" for k, v in sorted(row["kinds_ms"].items(),
+                                                             key=lambda kv: -kv[1]))
         print(f"2B DiT forward 512x768x97 {label}: {row['forward_ms']:.2f} ms by CUDA events, "
-              f"kernels busy {row['kernels_busy_ms']:.2f} ms ({row['idle_share']:.1%} idle)")
+              f"kernels busy {row['kernels_busy_ms']:.2f} ms ({row['idle_share']:.1%} idle); "
+              f"by kind (ms): {kinds}")
         for name, ms in row["top_kernels_ms"]:
             print(f"  {ms:8.3f} ms  {name[:110]}")
     if args.json:

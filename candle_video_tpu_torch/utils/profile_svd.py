@@ -18,21 +18,16 @@ import sys
 
 import torch
 
-from .profile_dit import cuda_ms, kernel_ms
+from .profile_dit import cuda_ms, kernel_ms, kinds_ms
 
-# kernel-name fragments -> kind, first match wins; K6 is
-# csrc/flash_attention_packed.cu's kernel, K1
-# csrc/flash_attention_hopper.cu's; cuDNN's convolutions are implicit GEMMs
-# named "fprop"
-KINDS = (("K6", "flash_attention_kernel<64>"),
-         ("K1", "flash_attention_hopper_kernel"),
-         ("conv", "fprop"), ("conv", "conv"), ("conv", "cudnn"),
-         ("matmul", "gemm"), ("matmul", "nvjet"), ("matmul", "cutlass"))
-
-
-def kind_of(name: str) -> str:
-    low = name.lower()
-    return next((k for k, frag in KINDS if frag.lower() in low), "other")
+# kernel-name patterns -> kind, first match wins.  K6 and K1 are one kernel,
+# csrc/flash_attention_hopper.cu's flash_attention_hopper_kernel<D,
+# consumers, stages, mode>: K6 runs its own template instance, mode 3
+# (online without the q rotation), K1 mode 0, so the name tells them apart.
+# cuDNN's convolutions are implicit GEMMs named "fprop".
+KINDS = (("K6", r"flash_attention_hopper_kernel<\d+,\s*\d+,\s*\d+,\s*3>"),
+         ("K1", r"flash_attention_hopper_kernel<\d+,\s*\d+,\s*\d+,\s*0>"),
+         ("conv", r"fprop|conv|cudnn"), ("matmul", r"gemm|nvjet|cutlass"))
 
 
 def _profile(fn, top: int) -> dict:
@@ -45,10 +40,8 @@ def _profile(fn, top: int) -> dict:
         torch.cuda.synchronize()
     kernels = kernel_ms(prof)
     busy = sum(kernels.values())
-    kinds: dict = {}
-    for name, t in kernels.items():
-        kinds[kind_of(name)] = kinds.get(kind_of(name), 0.0) + t
-    return dict(ms=ms, kernels_busy_ms=busy, idle_share=1 - busy / ms, kinds_ms=kinds,
+    return dict(ms=ms, kernels_busy_ms=busy, idle_share=1 - busy / ms,
+                kinds_ms=kinds_ms(kernels, KINDS),
                 top_kernels_ms=sorted(kernels.items(), key=lambda kv: -kv[1])[:top])
 
 

@@ -206,12 +206,13 @@ def by_frame(plain, q, k, v, bias=None, **kw):
 
 
 # the sources whose kernels must keep every value in registers
-NO_SPILLS = ("flash_attention_hopper.cu", "conv3d_igemm.cu")
+NO_SPILLS = ("flash_attention_hopper.cu", "conv3d_igemm.cu", "int8_matmul.cu")
 
 
 def check_ptxas(card):
     """Every kernel's registers and spill bytes as ``ptxas -v`` reported
-    them at the build; K1's and K8's kernels must not spill."""
+    them at the build; the kernels of the ``NO_SPILLS`` sources (the
+    attention modes K1, K2, K5 and K6; K7; K8) must not spill."""
     from candle_video_tpu_torch.ops.kernels import _build
 
     report = _build.ptxas_report()
@@ -301,7 +302,7 @@ def check_k1(card):
             torch.cuda.synchronize()
         return res
 
-    broken = broken_copy("k1", K1_BREAK, run_broken, source="flash_attention_hopper.cu")
+    broken = broken_copy("k1", K1_BREAK, run_broken)
     for label, err in broken.items():
         log(f"[K1 broken: no running-max rescale] {label}: rel={err['rel']:.3e} "
             f"scaled={err['scaled']:.3e} | {card}")
@@ -330,7 +331,7 @@ K2_FTZ = ("const float p = ex2_sub(sc[r]);", "const float p = ex2(sc[r]);")
 K5_BREAK = ("l[i] = lane % 4 == 0 ? l_st[st0 + 8 * i] : 0.f;", "l[i] = 0.f;")
 
 
-def broken_copy(tag, substitution, fn, source="flash_attention_packed.cu"):
+def broken_copy(tag, substitution, fn, source="flash_attention_hopper.cu"):
     """Run ``fn`` on a kernel library built from a copy of ``csrc/`` with
     ``substitution`` applied to ``source`` (under the gitignored output
     directory), then restore the real library."""
@@ -582,7 +583,7 @@ def check_k5(card):
             res[label] = errors(out, want)
         return res
 
-    broken = broken_copy("k5", K5_BREAK, run_broken, source="flash_attention_hopper.cu")
+    broken = broken_copy("k5", K5_BREAK, run_broken)
     for label, err in broken.items():
         multi = not label.startswith("(a)")
         log(f"[K5 broken: carried l dropped] {label}: rel={err['rel']:.3e} "
@@ -593,9 +594,13 @@ def check_k5(card):
     return rows[0]
 
 
-# the broken K6: the running max no longer rescales what was summed before
-# it (alpha = 1), so any row whose max rises after its first key tile is wrong
-K6_BREAK = ("alpha[r] = exp2f((m[r] - m_new) * LOG2E);", "alpha[r] = 1.f;")
+# the broken K6 (the online mode of flash_attention_hopper.cu, which K1
+# shares): the running max no longer rescales what was summed before it
+# (alpha = 1, for O and l), so any row whose max rises after its first key
+# tile is wrong.  A case of one key tile has nothing before it to rescale,
+# so a second copy drops the padded-key mask, which a ragged last tile needs.
+K6_BREAK = ("alpha[i] = ex2(m[i] - m_new);", "alpha[i] = 1.f;")
+K6_MASK_BREAK = ("if (k0 + BKV > K) {", "if (false) {")
 SVD_K6_SHAPE = (28, 9216, 5, 64)  # 576x1024x14 with CFG: 2 x 14 frames, 72·128 tokens
 
 
@@ -605,8 +610,11 @@ def check_k6(card):
     (c) K = 65, which a missing padded-key mask fails.  Each timed beside
     SDPA (flash backend without a bias, the default one with it).  Then the
     full path call [28, 9216, 5, 64], held against its plain version run
-    one frame at a time (at once it would hold 47.6 GB of scores), and the
-    broken copy, which must fail (a)-(c).  Returns the path call's row."""
+    one frame at a time (at once it would hold 47.6 GB of scores), and two
+    broken copies: without the running-max rescale, which must fail every
+    case of more than one 128-key tile ((a), (b)), and without the
+    padded-key mask, which must fail (c), whose 65 keys fill one tile.
+    Returns the path call's row."""
     from candle_video_tpu_torch.ops.kernels import flash_attention as K6
 
     dev = torch.device("cuda")
@@ -614,7 +622,7 @@ def check_k6(card):
     # (label, B, S, K, H, D, bias): the path's shape first
     cases = [("(a) path frame 1x9216x5x64", 1, 9216, 9216, 5, 64, False),
              ("(b) D=128 H=3 S=777 K=1000 bias", 2, 777, 1000, 3, 128, True),
-             # 63 of the last tile's 64 key slots are padding: a missing mask fails
+             # 63 of the tile's 128 key slots are padding: a missing mask fails
              ("(c) K=65 bias padded tile", 2, 200, 65, 5, 64, True)]
     rows, inputs = [], {}
     for label, b, s, kv, h, d, with_bias in cases:
@@ -681,13 +689,23 @@ def check_k6(card):
             torch.cuda.synchronize()
         return res
 
+    tiles = {label: -(-kv // 128) for label, _, _, kv, *_ in cases}
     broken = broken_copy("k6", K6_BREAK, run_broken)
     for label, err in broken.items():
         log(f"[K6 broken: no running-max rescale] {label}: rel={err['rel']:.3e} "
-            f"scaled={err['scaled']:.3e} | {card}")
-        if err["scaled"] <= K6_TOL["scaled"] and err["rel"] <= K6_TOL["rel"]:
+            f"scaled={err['scaled']:.3e}{'' if tiles[label] > 1 else ' (one key tile)'} | "
+            f"{card}")
+        if tiles[label] > 1 and err["scaled"] <= K6_TOL["scaled"] and \
+                err["rel"] <= K6_TOL["rel"]:
             raise AssertionError(f"the broken K6 passes the limits at {label}: {err}")
-    RESULTS["k6_broken"] = broken
+    unmasked = broken_copy("k6_mask", K6_MASK_BREAK, run_broken)
+    for label, err in unmasked.items():
+        log(f"[K6 broken: no padded-key mask] {label}: rel={err['rel']:.3e} "
+            f"scaled={err['scaled']:.3e} | {card}")
+    err = unmasked[cases[2][0]]
+    if err["scaled"] <= K6_TOL["scaled"] and err["rel"] <= K6_TOL["rel"]:
+        raise AssertionError(f"the K6 copy without the mask passes the limits at K = 65: {err}")
+    RESULTS["k6_broken"] = dict(no_rescale=broken, no_mask=unmasked)
     return full
 
 
@@ -774,41 +792,89 @@ def bf16_ulps(got, want):
     return ((got.float() - want.float()).abs() / ulp).max().item()
 
 
-# the broken K7: the epilogue drops the row scale s_x
-K7_BREAK = ("__fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][h * 2 + e]), rs), sw[n])",
-            "__fmul_rn(__int2float_rn(acc[i][j][h * 2 + e]), sw[n])")
+# the broken K7s: the epilogue drops the row scale s_x; the split-K pass
+# leaves split 1's partial out of its sum
+K7_BREAK = ("__fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs)",
+            "__fmul_rn(__int2float_rn(acc), cs)")
+K7_SPLIT_BREAK = ("for (int z = 1; z < args.split; ++z)", "for (int z = 2; z < args.split; ++z)")
+# the path's shapes, timed and swept over the plan's choices; then ragged
+# M, N and K (40 and 2072 take the zero pad to a multiple of 16), checked only
+K7_PATH = [("to_q/k/v/out attn1 4992x2048x2048", 4992, 2048, 2048),
+           ("ff.net_0_proj 4992x2048x8192", 4992, 2048, 8192),
+           ("ff.net_2 4992x8192x2048", 4992, 8192, 2048),
+           ("attn2 to_k/v 128x2048x2048", 128, 2048, 2048)]
+K7_RAGGED = [("ragged 1x48x72", 1, 48, 72), ("ragged 37x2064x200", 37, 2064, 200),
+             ("ragged 130x48x200", 130, 48, 200), ("ragged 4999x2048x2056", 4999, 2048, 2056),
+             ("padded K 1x40x72", 1, 40, 72), ("padded K 37x40x200", 37, 40, 200),
+             ("padded K 130x2072x72", 130, 2072, 72), ("odd N 64x256x199", 64, 256, 199)]
+
+
+def kernel_device_ms(fn, iters: int = 20) -> dict:
+    """Device milliseconds per call by kernel name, from ``torch.profiler``
+    over ``iters`` calls of ``fn`` (empty if the profiler saw no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from candle_video_tpu_torch.utils.profile_dit import kernel_ms
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {name: ms / iters for name, ms in kernel_ms(prof).items()}
+
+
+def device_ms_of(by_name: dict, fragment: str):
+    """The summed device ms of the kernels whose name holds ``fragment``
+    (None where the profile saw no device time)."""
+    return sum(t for k, t in by_name.items() if fragment in k) if by_name else None
 
 
 def check_k7(card):
     """K7 against its plain version at the W8A8 tier's shapes (M = 4992 at
-    the 2B DiT's three linear shapes, M = 128 for the cross-attention k/v),
-    the bias fused in f32 as the tier adds it: the int32 product is exact
-    and the epilogue the same f32 arithmetic, so the outputs must be equal
-    (0 bf16 ulp; the limit is 1).  Timed beside the plain version, the bf16
-    ``torch.matmul`` of the same shape (the dense tier's product) and
-    ``torch._int_mm`` (the int32 product alone, no epilogue).  Then the
-    broken copy, which must fail."""
+    the 2B DiT's three linear shapes, M = 128 for the cross-attention k/v)
+    and at ragged M, N and K (K = 40 and 2072 zero-padded), the bias fused
+    in f32 as the tier adds it: the int32 product is exact and the epilogue
+    the same f32 arithmetic, so the outputs must be equal (0 bf16 ulp; the
+    limit is 1).  The path's shapes are timed beside the plain version, the
+    bf16 ``torch.matmul`` of the same shape (the dense tier's product),
+    ``torch._int_mm`` (the int32 product alone, no epilogue) and the tier's
+    activation quantizer; the kernel's device time by ``torch.profiler``
+    (a single call's event time holds the wrapper's host work too), the
+    split-K pass's apart, and on the plan's alternatives (BN = 128 and 256
+    at M = 4992, splits 1, 2, 4 and 8 at M = 128).  Then the two broken copies, which must fail: s_x
+    dropped (every case), one split's partial dropped (every split case,
+    the M = 128 one among them)."""
+    from candle_video_tpu_torch.ops.kernels import _build
     from candle_video_tpu_torch.ops.kernels import int8_matmul as K7
 
     dev = torch.device("cuda")
+    sms = _build.sm_count(dev.index or 0)
     g = torch.Generator(device=dev).manual_seed(8)
     rows, inputs = [], {}
-    # (label, M, K, N): the path's square linear first
-    cases = [("to_q/k/v/out attn1 4992x2048x2048", 4992, 2048, 2048),
-             ("ff.net_0_proj 4992x2048x8192", 4992, 2048, 8192),
-             ("ff.net_2 4992x8192x2048", 4992, 8192, 2048),
-             ("attn2 to_k/v 128x2048x2048", 128, 2048, 2048)]
-    for label, m, kk, n in cases:
+    for label, m, kk, n in K7_PATH + K7_RAGGED:
         x_q = torch.randint(-127, 128, (m, kk), generator=g, device=dev, dtype=torch.int8)
         w_q = torch.randint(-127, 128, (n, kk), generator=g, device=dev, dtype=torch.int8)
         s_x = torch.rand(m, generator=g, device=dev) * 1e-2 + 1e-3
         s_w = torch.rand(n, generator=g, device=dev) * (0.04 / 73.6) + 1e-5
         bias = torch.randn(n, generator=g, device=dev) * 0.1
         args = (x_q, s_x, w_q, s_w, bias)
+        plan = K7.plan_w8a8(m, kk, n, sms)
         got = K7.w8a8_matmul(*args, bias_before_cast=True)
         want = K7.w8a8_matmul_plain(*args, bias_before_cast=True)
         torch.cuda.synchronize()
         err, ulps = errors(got, want), bf16_ulps(got, want)
+        plan_txt = (f"plan bn={plan['bn']} stages={plan['stages']} split={plan['split']} "
+                    f"ctas={plan['ctas']} ({plan['waves']:.2f} waves) k_pad={plan['k_pad']}")
+        inputs[label] = (args, want, plan["split"])
+        if ulps > 1:
+            raise AssertionError(f"K7 {label} ({plan_txt}) disagrees with its plain version: "
+                                 f"{ulps} ulps, {err}")
+        if (label, m, kk, n) in K7_RAGGED:
+            log(f"[K7] {label}: equal={torch.equal(got, want)} ulps={ulps:.0f} {plan_txt} | {card}")
+            continue
         ms = cuda_ms(lambda: K7.w8a8_matmul(*args, bias_before_cast=True), iters=20)
         plain_ms = cuda_ms(lambda: K7.w8a8_matmul_plain(*args, bias_before_cast=True), iters=5)
         xb = torch.randn(m, kk, generator=g, device=dev).bfloat16()
@@ -820,24 +886,41 @@ def check_k7(card):
         # JAX package leaves it to XLA) that runs before every K7 launch
         quantize_ms = cuda_ms(lambda: K7.quantize_activations_tier(xb), iters=20)
         nbytes = m * kk + n * kk + 4 * (m + 2 * n) + 2 * m * n
+        ops = 2.0 * m * kk * n
         row = dict(label=label, m=m, k=kk, n=n, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bf16_matmul_ms=bf16_ms, quantize_ms=quantize_ms,
-                   equal=torch.equal(got, want),
-                   bf16_ulps=ulps, **err, **bound(2.0 * m * kk * n, nbytes, PEAK_INT8_OPS))
+                   equal=torch.equal(got, want), bf16_ulps=ulps, tops=ops / ms / 1e9,
+                   plan={k: plan[k] for k in ("bn", "stages", "split", "ctas", "waves")},
+                   **err, **bound(ops, nbytes, PEAK_INT8_OPS))
+        # the kernel's device time (GEMM and split pass) by name in a profile:
+        # one call's event time above also holds the wrapper's host work
+        by_name = kernel_device_ms(lambda: K7.w8a8_matmul(*args, bias_before_cast=True))
+        row.update(kernel_ms=device_ms_of(by_name, "w8a8_matmul"),
+                   split_pass_ms=device_ms_of(by_name, "splitk_reduce")
+                   if plan["split"] > 1 else None)
+        # the plan's alternatives on the same inputs, device time by profile
+        alts = [(bn, 1) for bn in (128, 256)] if m > 128 else [(128, z) for z in (1, 2, 4, 8)]
+        row["alternatives_kernel_ms"] = {
+            f"bn={bn} split={z}": device_ms_of(kernel_device_ms(lambda: K7._launch(
+                x_q, s_x, w_q, s_w, bias, K7.plan_w8a8(m, kk, n, sms, bn=bn, split=z))),
+                "w8a8_matmul") for bn, z in alts}
         log(f"[K7] {label}: equal={row['equal']} ulps={ulps:.0f} max_abs={err['max_abs']:.3e} "
-            f"kernel={ms:.4f} ms ({2.0 * m * kk * n / ms / 1e9:.1f} TOP/s, "
+            f"{plan_txt} kernel={ms:.4f} ms through the wrapper, {row['kernel_ms']} ms on the "
+            f"device ({row['tops']:.1f} TOP/s, "
             f"{row['bound_ms'] / ms:.1%} of the {row['bound_ms']:.4f} ms bound, "
-            f"{row['bound_by']}) _int_mm={library_ms:.4f} ms bf16 matmul={bf16_ms:.4f} ms "
-            f"activation quantizer={quantize_ms:.4f} ms plain={plain_ms:.3f} ms | {card}")
-        if ulps > 1:
-            raise AssertionError(f"K7 {label} disagrees with its plain version: {row}")
+            f"{row['bound_by']}) _int_mm={library_ms:.4f} ms ({ms / library_ms:.2f}x) "
+            f"bf16 matmul={bf16_ms:.4f} ms ({ms / bf16_ms:.2f}x) activation "
+            f"quantizer={quantize_ms:.4f} ms plain={plain_ms:.3f} ms | {card}")
+        log(f"[K7] {label} plans, device ms: "
+            + " ".join(f"{k}: {v}" for k, v in row["alternatives_kernel_ms"].items())
+            + (f" | the split pass {row['split_pass_ms']} ms of {row['kernel_ms']}"
+               if plan["split"] > 1 else "") + f" | {card}")
         rows.append(row)
-        inputs[label] = (args, want)
     RESULTS["k7"] = rows
 
     def run_broken():
         res = {}
-        for label, (args, want) in inputs.items():
+        for label, (args, want, _) in inputs.items():
             res[label] = bf16_ulps(K7.w8a8_matmul(*args, bias_before_cast=True), want)
             torch.cuda.synchronize()
         return res
@@ -847,7 +930,16 @@ def check_k7(card):
         log(f"[K7 broken: s_x dropped] {label}: ulps={ulps:.3e} | {card}")
         if ulps <= 1:
             raise AssertionError(f"the broken K7 passes the limit at {label}: {ulps}")
-    RESULTS["k7_broken"] = broken
+    split_broken = broken_copy("k7_split", K7_SPLIT_BREAK, run_broken, source="int8_matmul.cu")
+    for label, ulps in split_broken.items():
+        split = inputs[label][2]
+        log(f"[K7 broken: split 1's partial dropped] {label} (split {split}): ulps={ulps:.3e} "
+            f"| {card}")
+        if split > 1 and ulps <= 1:
+            raise AssertionError(f"the K7 copy without a split's partial passes at {label}")
+    if inputs[K7_PATH[3][0]][2] < 2:
+        raise AssertionError("the M = 128 case is not split: the split copy tests nothing")
+    RESULTS["k7_broken"] = dict(no_sx=broken, no_split_partial=split_broken)
     return rows[0]
 
 
@@ -873,7 +965,7 @@ def k8_kernel_only(x, w27, bias, kw):
     o = w27.shape[1]
     mode = K8._mode(**kw)
     t_out = t - 2 if mode == "valid" else t
-    plan = K8.plan_conv3d(b, t_out, h, w, c, o, K8._sms(x.device.index))
+    plan = K8.plan_conv3d(b, t_out, h, w, c, o, _build.sm_count(x.device.index))
     y = torch.empty((b, o, t_out, h, w), dtype=torch.bfloat16, device=x.device,
                     memory_format=torch.channels_last_3d)
     ws = None
@@ -1771,7 +1863,7 @@ def main() -> int:
               launches_13b["w4_matmul"], k4),
         entry("ring_chunk_update", "flash_attention_hopper.cu", "ring_chunk.py:91",
               launches_sp["ring_chunk_update"], k5),
-        entry("flash_attention", "flash_attention_packed.cu", "flash_attention.py:175",
+        entry("flash_attention", "flash_attention_hopper.cu", "flash_attention.py:175",
               launches_svd["flash_attention"], k6),
         entry("w8a8_matmul", "int8_matmul.cu", "int8_matmul.py:48",
               launches_w8a8["w8a8_matmul"], k7),

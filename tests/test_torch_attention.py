@@ -9,7 +9,9 @@ Tolerance: max-abs <= 2e-5 (f32 softmax on both sides, same formula).
 The card's schedules of K1 and K2 (the online and fixed-shift modes of
 ``csrc/flash_attention_hopper.cu``: 128-key tiles, log2 units, bf16 p) are
 emulated in torch and held against the plain versions and the JAX kernels
-at ``chip_smoke.py``'s limits, beside the launch all modes share."""
+at ``chip_smoke.py``'s limits, beside the launch all modes share.  K6, the
+online mode without the q rotation at any H, runs K1's emulation at its own
+shapes against its plain version and the JAX ``flash_attention``."""
 
 import importlib
 
@@ -140,9 +142,9 @@ def test_kernel_library_is_keyed_on_sources():
     path = _build.library_path()
     assert path.parent.parent == _build.BUILD_DIR
     assert {p.name for p in _build._sources()} == {
-        "flash_attention_packed.cu", "flash_attention_hopper.cu", "int8_weight_matmul.cu",
-        "int4_weight_matmul.cu", "int8_matmul.cu", "conv3d_igemm.cu"}
-    assert {"cvt_w8a8_matmul", "cvt_conv3d_igemm"} <= set(_build._SIGNATURES)
+        "flash_attention_hopper.cu", "int8_weight_matmul.cu", "int4_weight_matmul.cu",
+        "int8_matmul.cu", "conv3d_igemm.cu"}
+    assert {"cvt_w8a8_matmul", "cvt_conv3d_igemm", "cvt_flash_attention"} <= set(_build._SIGNATURES)
 
 
 PTXAS = """\
@@ -426,6 +428,59 @@ def test_k1_schedule_emulated_matches_plain(rng, s, kv, h, d, with_bias, with_ro
     dd = got.float() - want.float()
     assert float((dd.abs() / want.float().abs().clamp_min(1.0)).max()) <= K1_TOL["scaled"]
     assert float(dd.norm() / want.float().norm()) <= K1_TOL["rel"]
+
+
+# ---------------------------------------------------------------------------
+# K6 on Hopper: the online mode without the q rotation, at any H.  Its
+# [B, S, H, D] inputs are K1's [B, S, H*D]; K1's emulated schedule at K6's
+# shapes (5 heads of 64 as at SVD level 0, 3 of 128; ragged K one key into
+# a tile, one key past it, and over eight tiles) against K6's plain version
+# and the JAX kernel in interpret mode on the same bf16 values in f32, at
+# K1's limits.
+# ---------------------------------------------------------------------------
+
+JK6 = importlib.import_module("candle_video_tpu.ops.pallas.flash_attention")
+K6 = importlib.import_module("candle_video_tpu_torch.ops.kernels.flash_attention")
+K6_CASES = [(h, d, kv, with_bias) for h, d in ((5, 64), (3, 128))
+            for kv in (65, 129, 1000) for with_bias in (False, True)]
+
+
+def _k6_inputs(rng, h, d, kv, with_bias, b=2, s=77):
+    """bf16 q·2, k, v [B, S|K, H, D] and an f32 key bias [B, 1, 1, K] with a
+    -1e4 mask and O(1) values, as K6 gets them."""
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, n, h, d)).astype(np.float32)).bfloat16()
+               for n in (s, kv, kv))
+    q = (q.float() * 2).bfloat16()
+    bias = None
+    if with_bias:
+        keep = rng.uniform(size=(b, kv)) > 0.3
+        keep[:, 0] = True
+        bias = torch.from_numpy(((1.0 - keep) * -10000.0 + rng.normal(size=(b, kv)))
+                                .astype(np.float32)[:, None, None, :])
+    return q, k, v, bias
+
+
+def _emulate_k6(q, k, v, scale, bias=None):
+    b, s, h, d = q.shape
+    flat = lambda t: t.reshape(t.shape[0], t.shape[1], h * d)  # noqa: E731
+    return _emulate_k1(flat(q), flat(k), flat(v), h, scale, bias=bias).reshape(b, s, h, d)
+
+
+@pytest.mark.parametrize("h,d,kv,with_bias", K6_CASES, ids=str)
+def test_k6_schedule_emulated_matches_plain(rng, h, d, kv, with_bias):
+    q, k, v, bias = _k6_inputs(rng, h, d, kv, with_bias)
+    got = _emulate_k6(q, k, v, d ** -0.5, bias)
+    _assert_within(got, K6.flash_attention_plain(q, k, v, scale=d ** -0.5, bias=bias), K1_TOL)
+
+
+@pytest.mark.parametrize("h,d,kv,with_bias", K6_CASES, ids=str)
+def test_k6_schedule_emulated_matches_pallas_interpret(rng, h, d, kv, with_bias):
+    q, k, v, bias = _k6_inputs(rng, h, d, kv, with_bias)
+    got = _emulate_k6(q, k, v, d ** -0.5, bias)
+    f32 = lambda t: None if t is None else jnp.asarray(t.float().numpy())  # noqa: E731
+    want = JK6.flash_attention(f32(q), f32(k), f32(v), scale=d ** -0.5, bias=f32(bias),
+                               block_k=128, interpret=True)
+    _assert_within(got, torch.from_numpy(np.array(want)), K1_TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ one-pass kernel (default blocks) and the multi-k-block online softmax
 key bias.  Tolerance: max-abs <= 1e-5 in f32; in bf16 one bf16 ulp,
 ``|got - want| <= 2^-7·max(1, |want|)`` (p rounds to bf16 on both sides).
 The dispatch sends shapes the lane-packed kernels do not take to K6 above
-512 keys and agrees with JAX ``attention(impl="pallas")``."""
+512 keys and agrees with JAX ``attention(impl="pallas")``.  Off the CPU the
+wrapper launches ``cvt_flash_attention`` on K1's online launch."""
 
 import importlib
 
@@ -176,3 +177,47 @@ def test_k6_cuda_route_checks(bad, exc, match):
         bias = torch.zeros(b, 1, 1, kv, dtype=torch.bfloat16)
     with pytest.raises(exc, match=match):
         K6._check(q, k, v, bias)
+
+
+class _Lib:
+    """A stand-in for the kernel library that records K6's launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def cvt_flash_attention(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("h,d", [(5, 64), (3, 128)])
+def test_k6_launches_the_hopper_kernel_on_k1_online_launch(monkeypatch, h, d):
+    """Off the CPU the wrapper asks ``launch_params(d, "online")`` for its
+    launch and hands its consumers, stages and shared memory to
+    ``cvt_flash_attention``.  Meta tensors stand in for the card's (the
+    input checks, which need a CUDA tensor, are stubbed)."""
+    asked, lib = [], _Lib()
+    online = FAP.launch_params
+
+    def spy(head_dim, mode="online"):
+        asked.append((head_dim, mode))
+        return online(head_dim, mode)
+
+    monkeypatch.setattr(K6, "launch_params", spy)
+    monkeypatch.setattr(K6, "_check", lambda *a: None)
+    monkeypatch.setattr(_build, "lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 7})())
+    _build.reset_launches()
+    b, s, kv = 2, 300, 1000
+    q = torch.empty(b, s, h, d, dtype=torch.bfloat16, device="meta")
+    k = v = torch.empty(b, kv, h, d, dtype=torch.bfloat16, device="meta")
+    out = K6.flash_attention(q, k, v, scale=d ** -0.5)
+    assert out.shape == q.shape and out.device.type == "meta"
+    assert asked == [(d, "online")]
+    p = FAP.launch_params(d, "online")
+    assert len(lib.calls) == 1
+    assert lib.calls[0][5:] == (b, s, kv, h, d, d ** -0.5, p["consumers"], p["stages"],
+                                p["smem_bytes"], 7)
+    assert _build.LAUNCHES[K6.NAME] == 1
+    assert len(lib.calls[0]) == len(_build._SIGNATURES["cvt_flash_attention"])

@@ -11,6 +11,11 @@ against the JAX package on the CPU.
 - ``quantize_transformer_w8a8`` payloads equal ``quantize_transformer_params``'
   bit for bit (stored ``[N, K]``), the carry-across in ``convert.py``, and
   the tiny W8A8 DiT forward against JAX within the dense DiT's max-abs 2e-3.
+- K7's host plan ``plan_w8a8`` (tiles, split, shared memory, boxes) and
+  its card schedule emulated in torch (K zero-padded to 16, 128-byte
+  K-steps, int32 partials per split summed, the f32 epilogue in order):
+  bit-equal to the plain version and to JAX in interpret mode, at the
+  tier's shapes cut small and at ragged M, K and N.
 - K7 itself on a card (marked ``cuda``; skips without one).
 """
 
@@ -215,3 +220,125 @@ def test_k7_kernel_on_the_card(rng):
         torch.cuda.synchronize()
         assert torch.equal(got, want), (m, k, n)
     assert _build.LAUNCHES[K7.NAME] == len(SHAPES) + 1
+
+
+# ---------------------------------------------------------------------------
+# K7 on Hopper: the host plan and the card's schedule, emulated in torch
+# ---------------------------------------------------------------------------
+
+# the tier's shapes cut small (M = 4992 -> 256, the M = 128 cross-attention
+# k/v at the tier's K) and ragged M, K (40 takes the zero pad) and N
+TIER_SMALL = [(256, 256, 512), (256, 512, 256), (128, 2048, 256)]
+RAGGED = [(m, k, n) for m in (1, 37, 130) for k in (40, 48, 2064) for n in (72, 200)]
+PATH = [(4992, 2048, 2048), (4992, 2048, 8192), (4992, 8192, 2048), (128, 2048, 2048)]
+
+
+def _plans(m, k, n):
+    """The default plan and the forced ones the card's sweep times."""
+    yield K7.plan_w8a8(m, k, n)
+    for bn in (128, 256):
+        for split in (1, 2, 4):
+            if split <= -(-(-(-k // 16) * 16) // K7.STEP_K):
+                yield K7.plan_w8a8(m, k, n, bn=bn, split=split)
+
+
+@pytest.mark.parametrize("m,k,n", PATH + TIER_SMALL + RAGGED, ids=str)
+def test_k7_plan_covers_the_output_and_fits_the_card(m, k, n):
+    for p in _plans(m, k, n):
+        assert p["m_tiles"] * p["bm"] >= m > (p["m_tiles"] - 1) * p["bm"]
+        assert p["n_tiles"] * p["bn"] >= n > (p["n_tiles"] - 1) * p["bn"]
+        assert p["k_pad"] % 16 == 0 and k <= p["k_pad"] < k + 16
+        assert (p["steps"] - 1) * K7.STEP_K < p["k_pad"] <= p["steps"] * K7.STEP_K
+        # the split's ranges cut the K-steps into consecutive non-empty runs
+        assert p["ranges"][0][0] == 0 and p["ranges"][-1][1] == p["steps"]
+        assert all(a < b for a, b in p["ranges"]) and len(p["ranges"]) == p["split"]
+        assert all(p["ranges"][i][1] == p["ranges"][i + 1][0] for i in range(p["split"] - 1))
+        assert p["smem_bytes"] <= K7.SMEM_LIMIT == 232448
+        assert p["smem_bytes"] == (1024 + p["stages"] * (p["bm"] + p["bn"]) * 128
+                                   + (2 * p["bn"] + p["bm"]) * 4 + 8 * (2 * p["stages"] + 1))
+        # each box's inner dimension is one 128-byte swizzled row of int8
+        assert p["box_inner_bytes"] == p["box_x"][0] == p["box_w"][0] == 128
+        assert p["box_x"][1] == p["bm"] and p["box_w"][1] == p["bn"] <= 256
+        assert (p["workspace"] is None) == (p["split"] == 1)
+        if p["workspace"] is not None:
+            assert p["workspace"] == (p["split"], p["m_tiles"] * 128, p["n_tiles"] * p["bn"])
+    # by default a split appears only where the tiles fall short of the SMs
+    p = K7.plan_w8a8(m, k, n)
+    assert (p["split"] > 1) == (p["tiles"] < K7.H100_SMS and p["steps"] > 1)
+    assert p["ctas"] <= max(p["tiles"], K7.H100_SMS)
+
+
+def test_k7_plan_on_the_path():
+    """The W8A8 tier's four linears: the M = 4992 ones on 128 x 256 tiles
+    (312 and 1248 CTAs), the M = 128 cross-attention k/v split four ways
+    (16 tiles of 128 x 128, 64 CTAs of four K-steps)."""
+    for k, n, ctas in ((2048, 2048, 312), (2048, 8192, 1248), (8192, 2048, 312)):
+        p = K7.plan_w8a8(4992, k, n)
+        assert (p["bn"], p["split"], p["ctas"]) == (256, 1, ctas)
+    p = K7.plan_w8a8(128, 2048, 2048)
+    assert (p["bn"], p["tiles"], p["split"], p["ctas"]) == (128, 16, 4, 64)
+    assert p["ranges"] == [(4 * z, 4 * z + 4) for z in range(4)]
+    with pytest.raises(ValueError, match="96-column"):
+        K7.plan_w8a8(128, 2048, 2048, bn=96)
+    with pytest.raises(ValueError, match="split of 17"):
+        K7.plan_w8a8(128, 2048, 2048, split=17)
+
+
+def _emulate_k7(x_q, s_x, w_q, s_w, bias, plan, drop=None):
+    """K7's schedule in torch: x_q and w_q zero-padded to ``k_pad`` and to
+    whole tiles, each split's int32 partial over its 128-byte K-steps
+    (exact: int64 products that must fit int32), the partials summed
+    (``drop`` leaves one out, as a broken reduce would), then
+    f32(acc) * s_x, * s_w, + f32 bias, each rounded, and one bf16 cast."""
+    m, k = x_q.shape
+    n = w_q.shape[0]
+    mp, np_, kp = plan["m_tiles"] * plan["bm"], plan["n_tiles"] * plan["bn"], plan["steps"] * 128
+    xp = torch.zeros(mp, kp, dtype=torch.int64)
+    wp = torch.zeros(np_, kp, dtype=torch.int64)
+    xp[:m, :k], wp[:n, :k] = x_q.long(), w_q.long()
+    acc = torch.zeros(mp, np_, dtype=torch.int64)
+    for z, (a, b) in enumerate(plan["ranges"]):
+        part = xp[:, 128 * a:128 * b] @ wp[:, 128 * a:128 * b].t()
+        assert int(part.abs().max()) < 2 ** 31
+        if z != drop:
+            acc += part
+    assert int(acc.abs().max()) < 2 ** 31
+    y = acc[:m, :n].to(torch.int32).float() * s_x[:, None]
+    y = y * s_w[None, :]
+    if bias is not None:
+        y = y + bias
+    return y.to(torch.bfloat16)
+
+
+def _k7_operands(rng, m, k, n):
+    x_q, w_q, s_x, s_w = _operands(rng, m, k, n)
+    bias = rng.normal(size=(n,)).astype(np.float32)
+    return x_q, np.ascontiguousarray(w_q.T), s_x, s_w, bias
+
+
+@pytest.mark.parametrize("m,k,n", TIER_SMALL + RAGGED, ids=str)
+def test_k7_schedule_emulated_equals_plain_and_pallas_interpret(rng, m, k, n):
+    x_q, w_nk, s_x, s_w, bias = _k7_operands(rng, m, k, n)
+    tx, tw, tsx, tsw, tb = map(torch.from_numpy, (x_q, w_nk, s_x, s_w, bias))
+    for plan in _plans(m, k, n):
+        got = _emulate_k7(tx, tsx, tw, tsw, tb, plan)
+        assert torch.equal(got, K7.w8a8_matmul_plain(tx, tsx, tw, tsw, tb,
+                                                     bias_before_cast=True))
+        assert torch.equal(_emulate_k7(tx, tsx, tw, tsw, None, plan),
+                           K7.w8a8_matmul_plain(tx, tsx, tw, tsw))
+    want = jax_w8a8_matmul(jnp.asarray(x_q), jnp.asarray(s_x), jnp.asarray(w_nk.T),
+                           jnp.asarray(s_w), interpret=True)
+    got = _emulate_k7(tx, tsx, tw, tsw, None, K7.plan_w8a8(m, k, n))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+def test_k7_schedule_without_one_split_partial_is_wrong(rng):
+    """The card's second broken copy leaves one split's partial out of the
+    sum: at the cross-attention k/v shape (split 4) that must show."""
+    m, k, n = 128, 2048, 256
+    plan = K7.plan_w8a8(m, k, n)
+    assert plan["split"] == 4
+    tx, tw, tsx, tsw, tb = map(torch.from_numpy, _k7_operands(rng, m, k, n))
+    want = K7.w8a8_matmul_plain(tx, tsx, tw, tsw, tb, bias_before_cast=True)
+    assert torch.equal(_emulate_k7(tx, tsx, tw, tsw, tb, plan), want)
+    assert not torch.equal(_emulate_k7(tx, tsx, tw, tsw, tb, plan, drop=1), want)
