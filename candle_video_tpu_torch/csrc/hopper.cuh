@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the kernels rebuilt for the card
-// (K1, K2, K5 and K6 in flash_attention_hopper.cu, K7 in int8_matmul.cu, K8
-// in conv3d_igemm.cu): TMA tensor maps and loads, mbarrier rings, wgmma
-// shared-memory descriptors and the wgmma instructions they use, register
-// reallocation.  Raw PTX, no CUTLASS, so a translation unit builds in
-// seconds.
+// (K1, K2, K5 and K6 in flash_attention_hopper.cu, K3 and K4 in
+// weight_only_matmul_hopper.cu, K7 in int8_matmul.cu, K8 in
+// conv3d_igemm.cu): TMA tensor maps and loads, mbarrier rings, wgmma
+// shared-memory descriptors and the wgmma instructions they use, ldmatrix,
+// register reallocation, and the thread-block cluster's barrier and
+// distributed shared memory.  Raw PTX, no CUTLASS, so a translation unit
+// builds in seconds.
 //
 // Layout contract between TMA and wgmma: every tile in shared memory is a
 // stack of 128-byte rows (64 bf16, or 128 int8) written by TMA with
@@ -114,6 +116,52 @@ __device__ __forceinline__ void fence_async_shared() {
 // a barrier among `count` threads (a warpgroup: 128), id 1..15
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Four 8x8 matrices of 16-bit elements, transposed on the way: thread t
+// names row t % 8 of matrix t / 8 and receives, in r[i], elements (2 * (t %
+// 4), t / 4) and (2 * (t % 4) + 1, t / 4) of matrix i (low half first).
+// Rows are 16 bytes.  On bytes (an 8-bit tile [rows, 16]): r[i] holds
+// bytes 2 * (t / 4) and 2 * (t / 4) + 1 of rows 2 * (t % 4) and 2 * (t % 4)
+// + 1, in that order.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// ---- thread-block clusters -------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster arrives, then waits for all the
+// others: shared-memory writes before the arrive (release) are visible to
+// reads of any CTA of the cluster after the wait (acquire).  All threads of
+// a warp execute both together (.aligned).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the address of the same shared-memory location in the CTA of rank `rank`
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---- register reallocation between warpgroups ------------------------------
@@ -363,6 +411,33 @@ __device__ __forceinline__ void wgmma_rs_n128_t(float (&d)[64], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 128] += A[64 x 16] . B[16 x 128], A in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // ---- host: tensor maps -----------------------------------------------------
 // cuTensorMapEncodeTiled is a driver function; it is taken from the runtime
 // by cudaGetDriverEntryPoint, so the library links no -lcuda.
@@ -391,13 +466,15 @@ static inline EncodeTiledFn encode_tiled() {
 }
 
 // A tensor map of `type` with `rank` dims (innermost first, `strides` in
-// bytes for dims 1..rank-1) and a box of `box` elements, 128-byte swizzle,
-// zero fill out of bounds.  TMA has no signed 8-bit type: int8 goes as
-// CU_TENSOR_MAP_DATA_TYPE_UINT8, which moves the same bytes and fills with
-// the byte 0, int8 zero.  Returns 0 or a CUDA error code.
+// bytes for dims 1..rank-1) and a box of `box` elements, 128-byte swizzle
+// unless `swizzle` says otherwise, zero fill out of bounds.  TMA has no
+// signed 8-bit type: int8 goes as CU_TENSOR_MAP_DATA_TYPE_UINT8, which
+// moves the same bytes and fills with the byte 0, int8 zero.  Returns 0 or
+// a CUDA error code.
 static inline int make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                            int rank, const uint64_t* dims, const uint64_t* strides,
-                           const uint32_t* box) {
+                           const uint32_t* box,
+                           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint32_t estride[5] = {1, 1, 1, 1, 1};
@@ -405,7 +482,7 @@ static inline int make_map(CUtensorMap* map, CUtensorMapDataType type, const voi
                         const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
                         reinterpret_cast<const cuuint64_t*>(strides),
                         reinterpret_cast<const cuuint32_t*>(box), estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -23,6 +23,7 @@ from ...ops.kernels.int4_weight_matmul import pack_nibbles
 from ...ops.kernels.int8_weight_matmul import quantize_int8_blockwise
 from ...ops.norms import rms_norm
 from ...ops.quant_linear import Int4Linear, Int8Linear
+from ...utils.device import loader_device
 from .configs import T5Config
 
 
@@ -209,7 +210,7 @@ def _gguf_linear(f, name: str, device, dtype, keep_quantized: bool):
 
 
 @torch.no_grad()
-def t5_from_gguf(path: str, cfg: T5Config, device="cpu", dtype=torch.bfloat16,
+def t5_from_gguf(path: str, cfg: T5Config, device="cuda", dtype=torch.bfloat16,
                  keep_quantized: bool = False) -> T5Encoder:
     """T5 encoder from a GGUF file with ``enc.blk.N.*`` names (the JAX
     ``params_from_gguf``).  ``keep_quantized=False`` dequantizes each linear
@@ -222,6 +223,7 @@ def t5_from_gguf(path: str, cfg: T5Config, device="cpu", dtype=torch.bfloat16,
     that the encoder's other paths do not load it."""
     from ...quant.gguf import GGUFFile
 
+    device = loader_device(device)
     f = GGUFFile(path)
     try:
         def norm(name):

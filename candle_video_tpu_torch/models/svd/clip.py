@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ...ops.activations import quick_gelu
+from ...utils.device import loader_device
 from .configs import ClipEncoderConfig
 from .loader import load_into
 from .unet import LayerNorm, init_random_
@@ -177,9 +178,10 @@ _NOT_WEIGHTS = ("vision_model.embeddings.position_ids",)
 
 
 def params_from_hf_state_dict(sd: Dict[str, torch.Tensor], cfg: ClipEncoderConfig,
-                              device="cpu", dtype=torch.float32):
+                              device="cuda", dtype=torch.float32):
     """An HF CLIPVisionModelWithProjection state dict -> the encoder on
-    ``device`` in ``dtype``."""
+    ``device`` (the GPU unless told otherwise) in ``dtype``."""
+    device = loader_device(device)
     sd = {k: v for k, v in sd.items() if k not in _NOT_WEIGHTS}
     return load_into(empty_clip(cfg, device, dtype), sd)
 

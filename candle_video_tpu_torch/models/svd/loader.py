@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...utils.device import loader_device
 from .configs import SvdUnetConfig
 from .unet import empty_unet
 
@@ -44,7 +45,7 @@ def load_into(module: nn.Module, sd) -> nn.Module:
 
 
 def unet_params_from_state_dict(sd: Dict[str, torch.Tensor], cfg: SvdUnetConfig | None = None,
-                                device="cpu", dtype=torch.float32):
+                                device="cuda", dtype=torch.float32):
     """A diffusers UNetSpatioTemporalConditionModel state dict -> the UNet
-    of ``cfg`` on ``device`` in ``dtype``."""
-    return load_into(empty_unet(cfg or SvdUnetConfig(), device, dtype), sd)
+    of ``cfg`` on ``device`` (the GPU unless told otherwise) in ``dtype``."""
+    return load_into(empty_unet(cfg or SvdUnetConfig(), loader_device(device), dtype), sd)

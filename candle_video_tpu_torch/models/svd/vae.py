@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.activations import silu
+from ...utils.device import loader_device
 from .configs import SvdVaeConfig
 from .loader import count_keys, load_into
 from .unet import (GroupNorm, ResnetBlock2D, SpatioTemporalResBlock, Block, Sampler,
@@ -185,9 +186,11 @@ def init_random(cfg: SvdVaeConfig, device, dtype=torch.bfloat16,
 
 @torch.no_grad()
 def vae_params_from_state_dict(sd: Dict[str, torch.Tensor], cfg: SvdVaeConfig | None = None,
-                               device="cpu", dtype=torch.float32):
+                               device="cuda", dtype=torch.float32):
     """A diffusers AutoencoderKLTemporalDecoder state dict (name -> tensor
-    or numpy) -> the module on ``device`` in ``dtype``; the decoder's
-    mid-block resnet count is read from the names."""
+    or numpy) -> the module on ``device`` (the GPU unless told otherwise)
+    in ``dtype``; the decoder's mid-block resnet count is read from the
+    names."""
+    device = loader_device(device)
     n_mid = count_keys(sd, "decoder.mid_block.resnets.{}.spatial_res_block.conv1.weight")
     return load_into(empty_vae(cfg or SvdVaeConfig(), device, dtype, n_mid), sd)

@@ -19,6 +19,7 @@ path went through the kernels.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -60,12 +61,16 @@ _SIGNATURES = {
     # q, k, v, bias, out, B, S, K, H, D, scale, consumers, stages, shared
     # memory bytes, stream
     "cvt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    # x, w_q, s, bias, workspace, out, M, K, N, qblock, splits, k_per_split,
+    # x, w_q, s, bias (bf16 or null), out, M, K, N, n_pad (the payload's
+    # columns), qblock, bn, stages, split (the cluster), shared memory bytes,
     # stream
-    "cvt_w8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, w_p, s, m, bias, workspace, out, M, K, N, qblock, scale_bf16, splits,
-    # packed_rows_per_split, stream
-    "cvt_w4_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "cvt_w8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w_p, s, m, bias (bf16 or null), out, M, K, N, n_pad, qblock,
+    # scale_bf16, bn, stages, split, shared memory bytes, stream
+    "cvt_w4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # split, shared memory bytes, out (int*): clusters of split CTAs the
+    # card holds at once
+    "cvt_weight_only_max_clusters": [_I, _I, _P],
     # x_q, s_x, w_q [N, K], s_w, bias (f32 or null), workspace (int32 or
     # null), out, M, K (a multiple of 16), N, bn, stages, split, shared
     # memory bytes, stream
@@ -170,6 +175,32 @@ def lib():
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+@contextlib.contextmanager
+def patched(root, source: str, substitutions):
+    """Within the block, ``lib()`` is a library built under ``root`` from a
+    copy of ``csrc/`` in which ``source`` has each (old, new) pair of
+    ``substitutions`` applied (each ``old`` must occur once): a kernel
+    changed on purpose, to show that a check catches it or to time a
+    variant.  The real library is restored after."""
+    global CSRC, BUILD_DIR, _lib
+    root = Path(root)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(CSRC, root / "csrc")
+    src = root / "csrc" / source
+    text = src.read_text()
+    for old, new in substitutions:
+        if text.count(old) != 1:
+            raise AssertionError(f"{source}: the text to replace is not there once: {old!r}")
+        text = text.replace(old, new)
+    src.write_text(text)
+    saved = CSRC, BUILD_DIR, _lib
+    CSRC, BUILD_DIR, _lib = root / "csrc", root / "_build", None
+    try:
+        yield
+    finally:
+        CSRC, BUILD_DIR, _lib = saved
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,20 +15,27 @@ Two dequant orders exist, as in the JAX package, and they are kept apart:
   bf16 (the DiT's choice) the product and the sum are each rounded to bf16,
   which differs from the kernel route in over a third of the weights.
 
-CPU tensors take the plain version; CUDA tensors launch the kernel
-(``csrc/int4_weight_matmul.cu``) or raise.  ``w4_matmul_auto`` keeps the
-JAX dispatch: from ``W4_XLA_MIN_M`` rows on, the transient route; below it
-(T5's 128-token encode, the DiT's cross-attention k/v over 128 caption
-tokens) the kernel.
+CPU tensors take the plain version; CUDA tensors launch the kernel or
+raise.  The kernel is the W4 instance of ``csrc/weight_only_matmul_hopper.cu``
+(K3 is its other format), on the plan ``plan_w4``: K3's ``plan_weight_only``
+over the K/2 packed rows, with two x boxes a step (the low and the high
+half of K) and four scale tiles (s and m of both halves).  A payload whose
+N is not a multiple of 16 is padded with zero columns per call.
+``w4_matmul_auto`` keeps the JAX dispatch: from ``W4_XLA_MIN_M`` rows on,
+the transient route; below it (T5's 128-token encode, the DiT's
+cross-attention k/v over 128 caption tokens) the kernel.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from . import _build
-from .int8_weight_matmul import dot_bf16, split_k
+from .int8_weight_matmul import (H100_CLUSTERS, cluster_slots, dot_bf16, pad_columns,
+                                 plan_weight_only, qblock_ok)
 
 NAME = "w4_matmul"
 QBLOCK4 = 32  # GGUF Q4_K sub-block size along K
@@ -138,6 +145,17 @@ def w4_matmul_xla_equivalent(x, w_p, s_w, m_w, bias=None, qblock: int = QBLOCK4,
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=256)
+def plan_w4(m: int, k: int, n: int, qblock: int = QBLOCK4, scale_bytes: int = 4,
+            clusters: tuple = H100_CLUSTERS, *, bn: int | None = None,
+            split: int | None = None) -> dict:
+    """K4's launch for ``[m, k] · [k, n]`` with s and m of ``scale_bytes``
+    (4: f32, 2: bf16): ``plan_weight_only`` over the k/2 packed rows,
+    cached: treat the result as read-only."""
+    return plan_weight_only(m, k // 2, n, qblock, x_boxes=2, scale_tiles=4,
+                            scale_bytes=scale_bytes, clusters=clusters, bn=bn, split=split)
+
+
 def _check(x, w_p, s_w, m_w, bias, qblock):
     m, k = x.shape
     n = w_p.shape[1]
@@ -145,11 +163,12 @@ def _check(x, w_p, s_w, m_w, bias, qblock):
             s_w.dtype not in _SCALE_DTYPES or m_w.dtype != s_w.dtype:
         raise TypeError(f"{NAME}: needs bf16 x, uint8 w_p, f32 or bf16 s and m of one "
                         f"dtype; got {x.dtype}, {w_p.dtype}, {s_w.dtype}, {m_w.dtype}")
-    if (w_p.shape[0] * 2 != k or k % 16 or k % (2 * qblock) or n % 8
-            or s_w.shape != (k // qblock, n) or m_w.shape != s_w.shape):
+    if (w_p.shape[0] * 2 != k or k % 16 or not qblock_ok(qblock) or k % (2 * qblock)
+            or n % 8 or s_w.shape != (k // qblock, n) or m_w.shape != s_w.shape):
         raise ValueError(f"{NAME}: x {tuple(x.shape)} w_p {tuple(w_p.shape)} "
                          f"s {tuple(s_w.shape)} m {tuple(m_w.shape)} qblock {qblock}: "
-                         "needs K % 16 == 0, K % (2*qblock) == 0 and N % 8 == 0")
+                         "needs K % 16 == 0, K % (2*qblock) == 0 and N % 8 == 0, and a "
+                         "qblock that is a multiple of 16 dividing 64 or a multiple of 64")
     tensors = [x, w_p, s_w, m_w]
     if bias is not None:
         if bias.dtype != torch.bfloat16 or bias.shape != (n,):
@@ -162,6 +181,27 @@ def _check(x, w_p, s_w, m_w, bias, qblock):
             raise ValueError(f"{NAME}: inputs must be contiguous and 16-byte aligned")
 
 
+def _launch(x, w_p, s_w, m_w, bias, qblock, plan=None):
+    """One launch on ``plan`` (``plan_w4``'s for the shape unless one is
+    given); the output is the only allocation, besides the zero-padded
+    payload of a ragged N."""
+    _check(x, w_p, s_w, m_w, bias, qblock)
+    m, k = x.shape
+    n = w_p.shape[1]
+    if plan is None:
+        plan = plan_w4(m, k, n, qblock, s_w.element_size(), cluster_slots(x.device.index))
+    w_p, s_w, m_w = pad_columns(plan["n_pad"], w_p, s_w, m_w)
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    err = _build.lib().cvt_w4_matmul(
+        x.data_ptr(), w_p.data_ptr(), s_w.data_ptr(), m_w.data_ptr(),
+        None if bias is None else bias.data_ptr(), y.data_ptr(), m, k, n, plan["n_pad"],
+        qblock, int(s_w.dtype == torch.bfloat16), plan["bn"], plan["stages"], plan["split"],
+        plan["smem_bytes"], torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, NAME)
+    _build.LAUNCHES[NAME] += 1
+    return y
+
+
 def w4_matmul(x, w_p, s_w, m_w, bias=None, qblock: int = QBLOCK4, out_dtype=None):
     """x [M, K], packed w_p uint8 [K/2, N], s_w and m_w [K/qblock, N] (f32 or
     bf16), bias [N] -> [M, N]."""
@@ -169,24 +209,7 @@ def w4_matmul(x, w_p, s_w, m_w, bias=None, qblock: int = QBLOCK4, out_dtype=None
         return w4_matmul_plain(x, w_p, s_w, m_w, bias, qblock, out_dtype)
     if out_dtype not in (None, torch.bfloat16):
         raise TypeError(f"{NAME}: the kernel writes bfloat16, not {out_dtype}")
-    if bias is not None:
-        bias = bias.to(torch.bfloat16)
-    _check(x, w_p, s_w, m_w, bias, qblock)
-    m, k = x.shape
-    n = w_p.shape[1]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, per = split_k(m, k // 2, n, sms)  # over packed rows, 32 a step
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    err = _build.lib().cvt_w4_matmul(
-        x.data_ptr(), w_p.data_ptr(), s_w.data_ptr(), m_w.data_ptr(),
-        None if bias is None else bias.data_ptr(), ws.data_ptr(), y.data_ptr(),
-        m, k, n, qblock, int(s_w.dtype == torch.bfloat16), splits, per,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(err, NAME)
-    _build.LAUNCHES[NAME] += 1
-    return y
+    return _launch(x, w_p, s_w, m_w, None if bias is None else bias.to(torch.bfloat16), qblock)
 
 
 def w4_matmul_auto(x, w_p, s_w, m_w, bias=None, qblock: int = QBLOCK4, out_dtype=None,

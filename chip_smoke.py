@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``candle_video_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the main paths' shapes (K1,
-K2, K5, K6, K7 and K8 also as copies broken on purpose, which must fail), then
+holds each against its plain PyTorch version at the main paths' shapes (all
+eight also as copies broken on purpose, which must fail), then
 drives on random weights, checking the outputs and the kernels' launch
 counts of every request:
 
@@ -50,13 +50,11 @@ import itertools
 import json
 import math
 import os
-import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -206,7 +204,8 @@ def by_frame(plain, q, k, v, bias=None, **kw):
 
 
 # the sources whose kernels must keep every value in registers
-NO_SPILLS = ("flash_attention_hopper.cu", "conv3d_igemm.cu", "int8_matmul.cu")
+NO_SPILLS = ("flash_attention_hopper.cu", "conv3d_igemm.cu", "int8_matmul.cu",
+             "weight_only_matmul_hopper.cu")
 
 
 def check_ptxas(card):
@@ -333,26 +332,14 @@ K5_BREAK = ("l[i] = lane % 4 == 0 ? l_st[st0 + 8 * i] : 0.f;", "l[i] = 0.f;")
 
 def broken_copy(tag, substitution, fn, source="flash_attention_hopper.cu"):
     """Run ``fn`` on a kernel library built from a copy of ``csrc/`` with
-    ``substitution`` applied to ``source`` (under the gitignored output
-    directory), then restore the real library."""
+    ``substitution`` (one (old, new) pair, or a list of them) applied to
+    ``source`` (under the gitignored output directory), then restore the
+    real library."""
     from candle_video_tpu_torch.ops.kernels import _build
 
-    root = os.path.join(OUT_DIR, f"broken_{tag}")
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(_build.CSRC, os.path.join(root, "csrc"))
-    src = os.path.join(root, "csrc", source)
-    with open(src) as f:
-        text = f.read()
-    if text.count(substitution[0]) != 1:
-        raise AssertionError(f"the {tag} line to break is not in the source")
-    with open(src, "w") as f:
-        f.write(text.replace(*substitution))
-    saved = _build.CSRC, _build.BUILD_DIR, _build._lib
-    _build.CSRC, _build.BUILD_DIR, _build._lib = Path(root, "csrc"), Path(root, "_build"), None
-    try:
+    subs = [substitution] if isinstance(substitution[0], str) else substitution
+    with _build.patched(os.path.join(OUT_DIR, f"broken_{tag}"), source, subs):
         return fn()
-    finally:
-        _build.CSRC, _build.BUILD_DIR, _build._lib = saved
 
 
 FAR_UNDER = "(far) 1x1000x8320x32x64, rows ~81 nats under the shift"
@@ -709,35 +696,198 @@ def check_k6(card):
     return full
 
 
+# K3's and K4's cases: (label, M, K, N, qblock, bias) and, for K4, the
+# scale dtype.  The path's shapes (the T5 linears at 128 tokens, the 13B
+# DiT's cross-attention k/v over 128 caption tokens), T5 under CFG (M =
+# 256), and ragged cases: M = 77, N not a multiple of 16 (padded by the
+# wrapper), qblock 16, 64 and 128.
+K3_CASES = [("T5 q/k/v/o", 128, 4096, 4096, 32, False),
+            ("T5 wi_0/wi_1", 128, 4096, 10240, 32, False),
+            ("T5 wo", 128, 10240, 4096, 32, False),
+            ("T5 q/k/v/o qb16", 128, 4096, 4096, 16, False),
+            ("T5 wi_0/wi_1 qb16", 128, 4096, 10240, 16, False),
+            ("T5 wo qb16", 128, 10240, 4096, 16, False),
+            ("13B W8 DiT attn2 k/v", 128, 4096, 4096, 32, True),
+            ("T5 CFG q/k/v/o", 256, 4096, 4096, 32, False),
+            ("ragged N qb64", 77, 4096, 4001, 64, True),
+            ("ragged N qb128 M=256", 256, 2048, 1000, 128, True)]
+K4_CASES = [("T5 q/k/v/o", 128, 4096, 4096, 32, False, torch.float32),
+            ("T5 wi_0/wi_1", 128, 4096, 10240, 32, False, torch.float32),
+            ("T5 wo", 128, 10240, 4096, 32, False, torch.float32),
+            ("DiT attn2 k/v", 128, 4096, 4096, 32, True, torch.bfloat16),
+            ("ragged", 77, 4096, 4000, 32, True, torch.float32),
+            ("T5 CFG q/k/v/o", 256, 4096, 4096, 32, False, torch.float32),
+            ("T5 q/k/v/o qb16", 128, 4096, 4096, 16, False, torch.float32),
+            ("ragged N qb64", 77, 4096, 4008, 64, True, torch.float32),
+            ("qb128 M=256", 256, 2048, 1032, 128, True, torch.bfloat16)]
+# the broken K3 and K4: each step's scale rows read from group g + 1 (W8's
+# code); the high nibbles scaled by the low group's s and m (W4's code).
+# Both go into one copy of the library, each failing its own format.
+K3_BREAK = ("tma_load_2d(sc, &smap, &full[s], n0, g0);",
+            "tma_load_2d(sc, &smap, &full[s], n0, g0 + 1);")
+K4_BREAK = ("pair(sc + half * args.tile_elems + gr * BN + n),\n"
+            "                       pair(sc + (2 + half) * args.tile_elems + gr * BN + n)",
+            "pair(sc + gr * BN + n),\n"
+            "                       pair(sc + 2 * args.tile_elems + gr * BN + n)")
+# the cluster's sum without split 1's partial: every split case of both
+# formats must fail
+WO_SPLIT_BREAK = ("for (int zz = 1; zz < MAX_SPLIT; ++zz) {",
+                  "for (int zz = 2; zz < MAX_SPLIT; ++zz) {")
+WO_SOURCE = "weight_only_matmul_hopper.cu"
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Host milliseconds per call of ``fn`` up to its enqueue (no sync in
+    the loop): the Python and launch work a call costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / iters
+
+
+def check_weight_only(card, tag, cases, make, call, plain, plan_of, bound_of, yardstick):
+    """K3 or K4 (``tag``) against its plain version in every case (rel <=
+    2e-4), timed through the wrapper (``ms``) and on the device by
+    ``torch.profiler`` (``kernel_ms``: a single call's event time also holds
+    the wrapper's host work), beside its bound, the plain version, the
+    yardstick and the host work a call.  Returns the rows and what
+    ``check_weight_only_broken`` needs to run the cases again."""
+    from candle_video_tpu_torch.ops.kernels.int8_weight_matmul import cluster_slots
+
+    dev = torch.device("cuda")
+    tol = K3_TOL if tag == "K3" else K4_TOL
+    rows, inputs = [], {}
+    slots = cluster_slots(dev.index or 0)
+    log(f"[{tag}] clusters of 1..8 CTAs the card holds at once: {slots} | {card}")
+    RESULTS["cluster_slots"] = slots
+    for case in cases:
+        label, m, kk, n, qb = case[:5]
+        args = make(case)
+        plan = plan_of(case)
+        got = call(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err = errors(got, want)
+        inputs[label] = (args, want, plan["split"])
+        plan_txt = (f"plan bn={plan['bn']} stages={plan['stages']} split={plan['split']} "
+                    f"ctas={plan['ctas']} ({plan['waves']:.2f} waves) n_pad={plan['n_pad']}")
+        if not err["rel"] <= tol["rel"]:
+            raise AssertionError(f"{tag} {label} ({plan_txt}) disagrees with its plain "
+                                 f"version: {err}")
+        ms = cuda_ms(lambda: call(*args), iters=20)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=5)
+        kernel_ms = device_ms_of(kernel_device_ms(lambda: call(*args), repeats=3),
+                                 "weight_only_matmul_kernel")
+        host = host_ms(lambda: call(*args))
+        library_ms, library_err, bf16_ms = yardstick(case, args, want)
+        row = dict(label=label, m=m, k=kk, n=n, qblock=qb, ms=ms, kernel_ms=kernel_ms,
+                   host_ms=host,
+                   plain_ms=plain_ms, library_ms=library_ms, library_rel=library_err,
+                   bf16_matmul_ms=bf16_ms,
+                   plan={k: plan[k] for k in ("bn", "stages", "split", "ctas", "waves",
+                                              "smem_bytes")},
+                   **err, **bound_of(case))
+        share = row["bound_ms"] / kernel_ms if kernel_ms else None
+        row["bound_share"] = share
+        log(f"[{tag}] {label} M={m} K={kk} N={n} qb={qb}: rel={err['rel']:.3e} "
+            f"max_abs={err['max_abs']:.3e} {plan_txt} | "
+            f"{ms:.4f} ms through the wrapper, {kernel_ms} ms on the device, {host:.4f} ms of "
+            f"host work a call "
+            f"({'n/a' if share is None else f'{share:.1%}'} of the {row['bound_ms']:.4f} ms "
+            f"bound, {row['bound_by']}) plain={plain_ms:.4f} ms | "
+            + (f"_weight_int4pack_mm={library_ms:.4f} ms (rel {library_err:.3e} against the "
+               f"plain version, not held) " if library_ms is not None else "")
+            + (f"bf16 matmul on the dequantized weight (not the same function)={bf16_ms:.4f} "
+               f"ms " if bf16_ms is not None else "") + f"| {card}")
+        rows.append(row)
+    RESULTS[tag.lower()] = rows
+    return rows, (tag, tol, inputs, call)
+
+
+def check_weight_only_broken(card, *runs):
+    """Two broken copies of the weight-only kernel, each run on every K3 and
+    K4 case (``runs``: what ``check_weight_only`` returned): one with
+    ``K3_BREAK`` and ``K4_BREAK``, which must fail every case, and one
+    with ``WO_SPLIT_BREAK``, which must fail every case of more than one
+    split (and each format must have one)."""
+    def run_all():
+        res = {}
+        for tag, _, inputs, call in runs:
+            for label, (args, want, _) in inputs.items():
+                res[tag, label] = errors(call(*args), want)
+                torch.cuda.synchronize()
+        return res
+
+    broken = {}
+    for name, subs in (("next group's scales (K3), high nibbles on the low group (K4)",
+                        [K3_BREAK, K4_BREAK]),
+                       ("split 1's partial dropped", [WO_SPLIT_BREAK])):
+        res = broken_copy(f"wo_{len(broken)}", subs, run_all, source=WO_SOURCE)
+        split_copy = subs == [WO_SPLIT_BREAK]
+        for tag, tol, inputs, _ in runs:
+            for label, (_, _, split) in inputs.items():
+                err = res[tag, label]
+                log(f"[{tag} broken: {name}] {label} (split {split}): rel={err['rel']:.3e} "
+                    f"| {card}")
+                if (not split_copy or split > 1) and err["rel"] <= tol["rel"]:
+                    raise AssertionError(f"the {tag} copy ({name}) passes at {label}: {err}")
+            if split_copy and not any(s > 1 for _, _, s in inputs.values()):
+                raise AssertionError(f"no {tag} case is split: the split copy tests nothing")
+        broken[name] = {f"{tag} {label}": err for (tag, label), err in res.items()}
+    RESULTS["weight_only_broken"] = broken
+
+
 def check_k3(card):
     from candle_video_tpu_torch.ops.kernels import int8_weight_matmul as K3
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    rows = []
-    for qb in (32, 16):
-        for kk, n in ((4096, 4096), (4096, 10240), (10240, 4096)):
-            x = torch.randn(128, kk, generator=g, device=dev).bfloat16()
-            w_q = torch.randint(-127, 128, (kk, n), generator=g, device=dev,
-                                dtype=torch.int8)
-            s = torch.rand(kk // qb, n, generator=g, device=dev) * 1e-3 + 1e-4
-            got = K3.w8_matmul(x, w_q, s, qblock=qb)
-            want = K3.w8_matmul_plain(x, w_q, s, qblock=qb)
-            torch.cuda.synchronize()
-            err = errors(got, want)
-            ms = cuda_ms(lambda: K3.w8_matmul(x, w_q, s, qblock=qb), iters=20)
-            plain_ms = cuda_ms(lambda: K3.w8_matmul_plain(x, w_q, s, qblock=qb), iters=20)
-            gbs = kk * n * (1 + 4 / qb) / ms / 1e6
-            log(f"[K3] M=128 K={kk} N={n} qb={qb}: rel={err['rel']:.3e} "
-                f"max_abs={err['max_abs']:.3e} kernel={ms:.4f} ms ({gbs:.0f} GB/s weight "
-                f"stream) plain={plain_ms:.4f} ms | {card}")
-            if not err["rel"] <= K3_TOL["rel"]:
-                raise AssertionError(f"K3 K={kk} N={n} qb={qb} disagrees: {err}")
-            nbytes = 2 * 128 * kk + kk * n + 4 * (kk // qb) * n + 2 * 128 * n
-            rows.append(dict(k=kk, n=n, qblock=qb, ms=ms, plain_ms=plain_ms, library_ms=None,
-                             **err, **bound(2.0 * 128 * kk * n, nbytes)))
-    RESULTS["k3"] = rows
-    return next(r for r in rows if (r["k"], r["n"], r["qblock"]) == (4096, 10240, 32))
+
+    def make(case):
+        _, m, kk, n, qb, with_bias = case
+        x = torch.randn(m, kk, generator=g, device=dev).bfloat16()
+        w_q = torch.randint(-127, 128, (kk, n), generator=g, device=dev, dtype=torch.int8)
+        s = torch.rand(kk // qb, n, generator=g, device=dev) * 1e-3 + 1e-4
+        bias = (torch.randn(n, generator=g, device=dev) * 0.1).bfloat16() if with_bias else None
+        return x, w_q, s, bias, qb
+
+    def bound_of(case):
+        _, m, kk, n, qb, with_bias = case
+        nbytes = 2 * m * kk + kk * n + 4 * (kk // qb) * n + 2 * m * n + 2 * n * with_bias
+        return bound(2.0 * m * kk * n, nbytes)
+
+    def yardstick(case, args, want):
+        x, w_q, s, _, qb = args
+        wd = K3.dequantize(w_q, s, qb)
+        return None, None, cuda_ms(lambda: torch.matmul(x, wd), iters=20)
+
+    rows, run = check_weight_only(
+        card, "K3", K3_CASES, make, lambda *a: K3.w8_matmul(*a[:4], qblock=a[4]),
+        lambda *a: K3.w8_matmul_plain(*a[:4], qblock=a[4]),
+        lambda case: K3.plan_w8(*case[1:5], K3.cluster_slots(dev.index or 0)),
+        bound_of, yardstick)
+    return next(r for r in rows if r["label"] == "T5 wi_0/wi_1"), run
+
+
+def int4pack_yardstick(x, w_p, s, mn, qb):
+    """``torch._weight_int4pack_mm`` on K4's weight, converted once outside
+    the timed call: the codes transposed to [N, K] and packed by
+    ``_convert_weight_to_int4pack`` (two codes a byte, the even k in the
+    high nibble), scale and zero ``m + 8·s`` in bf16 (its dequant is (q -
+    8)·scale + zero).  Returns its ms and the call itself."""
+    from candle_video_tpu_torch.ops.kernels import int4_weight_matmul as K4
+
+    codes = K4._codes(w_p).t().contiguous().to(torch.int32)  # [N, K]
+    packed = ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8)
+    w4 = torch._convert_weight_to_int4pack(packed, 8)
+    zeros = (mn.float() + 8.0 * s.float()).bfloat16()
+    sz = torch.stack([s.bfloat16(), zeros], dim=2).contiguous()  # [K/qb, N, 2]
+    return cuda_ms(lambda: torch._weight_int4pack_mm(x, w4, qb, sz), iters=20), \
+        torch._weight_int4pack_mm(x, w4, qb, sz)
 
 
 def check_k4(card):
@@ -745,42 +895,48 @@ def check_k4(card):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    rows = []
-    # (label, M, K, N, scale dtype, bias): the T5 linears at 128 tokens, the
-    # 13B DiT's cross-attention k/v over 128 caption tokens, one ragged case
-    cases = [("T5 q/k/v/o", 128, 4096, 4096, torch.float32, False),
-             ("T5 wi_0/wi_1", 128, 4096, 10240, torch.float32, False),
-             ("T5 wo", 128, 10240, 4096, torch.float32, False),
-             ("DiT attn2 k/v", 128, 4096, 4096, torch.bfloat16, True),
-             ("ragged", 77, 4096, 4000, torch.float32, True)]
-    for label, m, kk, n, sdt, with_bias in cases:
+
+    def make(case):
+        _, m, kk, n, qb, with_bias, sdt = case
         x = torch.randn(m, kk, generator=g, device=dev).bfloat16()
         w_p = torch.randint(0, 256, (kk // 2, n), generator=g, device=dev, dtype=torch.uint8)
         # the DiT init's affine form: s ~ 0.02/4.61, m ~ -7.5·s (centred weights)
-        s = (torch.rand(kk // 32, n, generator=g, device=dev) * 0.5 + 0.75) * (0.02 / 4.61)
+        s = (torch.rand(kk // qb, n, generator=g, device=dev) * 0.5 + 0.75) * (0.02 / 4.61)
         mn = -7.5 * s * (1.0 + 0.05 * torch.randn(s.shape, generator=g, device=dev))
-        s, mn = s.to(sdt), mn.to(sdt)
         bias = (torch.randn(n, generator=g, device=dev) * 0.1).bfloat16() if with_bias else None
-        got = K4.w4_matmul(x, w_p, s, mn, bias)
-        want = K4.w4_matmul_plain(x, w_p, s, mn, bias)
-        torch.cuda.synchronize()
-        err = errors(got, want)
-        ms = cuda_ms(lambda: K4.w4_matmul(x, w_p, s, mn, bias), iters=20)
-        plain_ms = cuda_ms(lambda: K4.w4_matmul_plain(x, w_p, s, mn, bias), iters=20)
-        weight_bytes = kk // 2 * n + 2 * (kk // 32) * n * s.element_size()
-        gbs = weight_bytes / ms / 1e6
-        log(f"[K4] {label} M={m} K={kk} N={n} s,m {str(sdt)[6:]}"
-            f"{' bias' if with_bias else ''}: rel={err['rel']:.3e} "
-            f"max_abs={err['max_abs']:.3e} kernel={ms:.4f} ms ({gbs:.0f} GB/s weight "
-            f"stream) plain={plain_ms:.4f} ms | {card}")
-        if not err["rel"] <= K4_TOL["rel"]:
-            raise AssertionError(f"K4 {label} disagrees with its plain version: {err}")
-        nbytes = 2 * m * kk + weight_bytes + 2 * m * n + 2 * n * with_bias
-        rows.append(dict(label=label, m=m, k=kk, n=n, scale_dtype=str(sdt), ms=ms,
-                         plain_ms=plain_ms, weight_gb_s=gbs, library_ms=None, **err,
-                         **bound(2.0 * m * kk * n, nbytes)))
-    RESULTS["k4"] = rows
-    return next(r for r in rows if r["label"] == "DiT attn2 k/v")
+        return x, w_p, s.to(sdt), mn.to(sdt), bias, qb
+
+    def bound_of(case):
+        _, m, kk, n, qb, with_bias, sdt = case
+        es = torch.tensor([], dtype=sdt).element_size()
+        nbytes = (2 * m * kk + kk // 2 * n + 2 * (kk // qb) * n * es + 2 * m * n
+                  + 2 * n * with_bias)
+        return bound(2.0 * m * kk * n, nbytes)
+
+    def yardstick(case, args, want):
+        x, w_p, s, mn, bias, qb = args
+        if qb not in (32, 64, 128, 256):  # the group sizes its kernel takes
+            return None, None, None
+        ms, out = int4pack_yardstick(x, w_p, s, mn, qb)
+        out = out if bias is None else out + bias
+        return ms, errors(out, want)["rel"], None
+
+    rows, run = check_weight_only(
+        card, "K4", K4_CASES, make, lambda *a: K4.w4_matmul(*a[:5], qblock=a[5]),
+        lambda *a: K4.w4_matmul_plain(*a[:5], qblock=a[5]),
+        lambda case: K4.plan_w4(*case[1:5], torch.tensor([], dtype=case[6]).element_size(),
+                                K4.cluster_slots(dev.index or 0)),
+        bound_of, yardstick)
+    return next(r for r in rows if r["label"] == "DiT attn2 k/v"), run
+
+
+def check_k3_k4(card):
+    """K3 and K4 in every case, then their broken copies on the same
+    inputs; returns the rows of the ``kernels`` line."""
+    k3, run3 = check_k3(card)
+    k4, run4 = check_k4(card)
+    check_weight_only_broken(card, run3, run4)
+    return k3, k4
 
 
 def bf16_ulps(got, want):
@@ -809,21 +965,37 @@ K7_RAGGED = [("ragged 1x48x72", 1, 48, 72), ("ragged 37x2064x200", 37, 2064, 200
              ("padded K 130x2072x72", 130, 2072, 72), ("odd N 64x256x199", 64, 256, 199)]
 
 
-def kernel_device_ms(fn, iters: int = 20) -> dict:
+def kernel_device_ms(fn, iters: int = 20, tries: int = 3, repeats: int = 1) -> dict:
     """Device milliseconds per call by kernel name, from ``torch.profiler``
     over ``iters`` calls of ``fn`` (empty if the profiler saw no device
-    time)."""
+    time).  A profile that saw no device time, or in which a kernel's count
+    is not a multiple of ``iters`` (dropped records), is taken again, up to
+    ``tries`` times; with ``repeats`` > 1, each name's median over that many
+    profiles."""
     from torch.profiler import ProfilerActivity, profile
-
-    from candle_video_tpu_torch.utils.profile_dit import kernel_ms
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {name: ms / iters for name, ms in kernel_ms(prof).items()}
+    runs = []
+    for _ in range(repeats):
+        rows: dict = {}
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            rows = {}
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", None)
+                us = e.self_cuda_time_total if us is None else us
+                if us > 0:
+                    ms, count = rows.get(e.key, (0.0, 0))
+                    rows[e.key] = (ms + us / 1e3, count + e.count)
+            if rows and all(count % iters == 0 for _, count in rows.values()):
+                break
+        runs.append({name: ms / iters for name, (ms, _) in rows.items()})
+    names = set().union(*runs)
+    return {name: statistics.median(r[name] for r in runs if name in r) for name in names}
 
 
 def device_ms_of(by_name: dict, fragment: str):
@@ -1826,8 +1998,7 @@ def main() -> int:
 
     k1 = check_k1(card)
     k2 = check_k2(card)
-    k3 = check_k3(card)
-    k4 = check_k4(card)
+    k3, k4 = check_k3_k4(card)
     k5 = check_k5(card)
     k7 = check_k7(card)
     k8 = check_k8(card)
@@ -1857,9 +2028,9 @@ def main() -> int:
               "flash_attention_packed.py:543", launches["flash_attention_packed"], k1),
         entry("flash_attention_packed_long", "flash_attention_hopper.cu",
               "flash_attention_packed.py:392", launches_long["flash_attention_packed_long"], k2),
-        entry("w8_matmul", "int8_weight_matmul.cu", "int8_weight_matmul.py:82",
+        entry("w8_matmul", "weight_only_matmul_hopper.cu", "int8_weight_matmul.py:82",
               launches["w8_matmul"], k3),
-        entry("w4_matmul", "int4_weight_matmul.cu", "int4_weight_matmul.py:205",
+        entry("w4_matmul", "weight_only_matmul_hopper.cu", "int4_weight_matmul.py:205",
               launches_13b["w4_matmul"], k4),
         entry("ring_chunk_update", "flash_attention_hopper.cu", "ring_chunk.py:91",
               launches_sp["ring_chunk_update"], k5),
@@ -1871,6 +2042,8 @@ def main() -> int:
               launches_k8["conv3d_igemm"], k8),
     ]
     kernels[-1]["kernel_ms"] = k8["kernel_ms"]  # K8 alone, beside its wrapper's ms
+    kernels[2]["kernel_ms"] = k3["kernel_ms"]   # K3 and K4 on the device, by profile
+    kernels[3]["kernel_ms"] = k4["kernel_ms"]
     kernels[1].update(kernel_ms=k2["kernel_ms"], shift_ms=k2["shift_ms"])  # K2 alone, its shift
     RESULTS.update(card=card, kernels=kernels)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

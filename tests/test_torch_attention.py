@@ -142,9 +142,32 @@ def test_kernel_library_is_keyed_on_sources():
     path = _build.library_path()
     assert path.parent.parent == _build.BUILD_DIR
     assert {p.name for p in _build._sources()} == {
-        "flash_attention_hopper.cu", "int8_weight_matmul.cu", "int4_weight_matmul.cu",
-        "int8_matmul.cu", "conv3d_igemm.cu"}
-    assert {"cvt_w8a8_matmul", "cvt_conv3d_igemm", "cvt_flash_attention"} <= set(_build._SIGNATURES)
+        "flash_attention_hopper.cu", "weight_only_matmul_hopper.cu", "int8_matmul.cu",
+        "conv3d_igemm.cu"}
+    assert {"cvt_w8a8_matmul", "cvt_conv3d_igemm", "cvt_flash_attention", "cvt_w8_matmul",
+            "cvt_w4_matmul", "cvt_weight_only_max_clusters"} <= set(_build._SIGNATURES)
+
+
+def test_patched_library_builds_from_an_edited_copy_and_restores(tmp_path):
+    """``_build.patched``: inside the block the library is keyed on a copy of
+    the sources with the substitution made; after it, on the real ones; a
+    text that is not in the source once is refused."""
+    real_csrc, real_path = _build.CSRC, _build.library_path()
+    old = "constexpr int MAX_SPLIT = 8;"
+    with _build.patched(tmp_path / "copy", "weight_only_matmul_hopper.cu",
+                        [(old, "constexpr int MAX_SPLIT = 4;")]):
+        assert _build.CSRC == tmp_path / "copy" / "csrc" and _build._lib is None
+        text = (_build.CSRC / "weight_only_matmul_hopper.cu").read_text()
+        assert "MAX_SPLIT = 4;" in text and old not in text
+        assert _build.library_path().parent.parent == tmp_path / "copy" / "_build"
+        assert _build.library_path().parent.name != real_path.parent.name
+    assert (_build.CSRC, _build.library_path()) == (real_csrc, real_path)
+    assert old in (real_csrc / "weight_only_matmul_hopper.cu").read_text()
+    with pytest.raises(AssertionError, match="not there once"):
+        with _build.patched(tmp_path / "bad", "weight_only_matmul_hopper.cu",
+                            [("no such text", "")]):
+            pass
+    assert _build.CSRC == real_csrc
 
 
 PTXAS = """\

@@ -5,7 +5,9 @@ against ``w4_matmul_xla``.
 
 Both sides of each comparison dequantize in the same order and round the
 weight to bf16 once per order, then accumulate in f32; only the summation
-order differs.  Tolerance: relative Frobenius error <= 1e-5."""
+order differs.  Tolerance: relative Frobenius error <= 1e-5 for f32
+outputs, <= 2e-4 where both sides round to bf16 (the card's schedule
+emulated in torch against the plain version and the Pallas kernel)."""
 
 import ml_dtypes
 import numpy as np
@@ -17,6 +19,9 @@ import jax.numpy as jnp
 from candle_video_tpu.ops.pallas import int4_weight_matmul as J4
 from candle_video_tpu_torch.ops.kernels import _build
 from candle_video_tpu_torch.ops.kernels import int4_weight_matmul as K4
+from test_torch_int8_matmul import (  # noqa: E402  (K3's helpers: one kernel)
+    EMU_RTOL, _forced_plans as forced_plans, check_plan_covers_the_output,
+    check_plan_fills_one_wave, emulate_split_k, stub_card)
 
 torch.set_num_threads(2)
 RTOL = 1e-5
@@ -137,3 +142,171 @@ def test_wrapper_checks_reject_what_the_kernel_does_not_take():
         K4._check(x, wp[:, :12], s[:, :12], s[:, :12], None, 32)
     with pytest.raises(ValueError, match="on cpu"):  # shapes pass, then the device check
         K4._check(x, wp, s, s, None, 32)
+
+
+@pytest.mark.parametrize("qb", [8, 48, 96])
+def test_qblocks_the_kernel_refuses_still_run_on_the_cpu(rng, qb):
+    """The one divergence from the JAX ``w4_matmul``: the kernel takes a
+    qblock whose 16-deep chunks lie in one group (16, 32, 64, 128, ...), so
+    the wrapper refuses 8, 48 or 96 before a launch; the plain version, as
+    the JAX kernel, takes them."""
+    k, n = 8 * qb, 16
+    w = rng.normal(size=(k, n)).astype(np.float32) * 0.05
+    packed, s, mn = K4.quantize_int4_blockwise(w, qb)
+    x = torch.from_numpy(rng.normal(size=(4, k)).astype(np.float32))
+    assert not K4.qblock_ok(qb)
+    with pytest.raises(ValueError, match="multiple of 16 dividing 64"):
+        K4._check(x.bfloat16(), packed, s, mn, None, qb)
+    got = K4.w4_matmul(x, packed, s, mn, qblock=qb)
+    want = J4.w4_matmul(jnp.asarray(x.numpy()), jnp.asarray(packed.numpy()),
+                        jnp.asarray(s.numpy()), jnp.asarray(mn.numpy()),
+                        out_dtype=jnp.float32, interpret=True, qblock=qb)
+    assert _rel(got.numpy(), want) <= RTOL
+
+
+# ---------------------------------------------------------------------------
+# K4 on Hopper: the host plan, the card's schedule emulated in torch, and
+# the wrapper's launch (K3's helpers: one kernel, two formats)
+# ---------------------------------------------------------------------------
+
+PATH = [(4096, 4096), (4096, 10240), (10240, 4096)]
+PLAN_SHAPES = ([(m, k, n) for m in (1, 77, 128, 256, 1000) for k, n in PATH]
+               + [(77, 1024, 4008), (1, 256, 16), (130, 320, 200)])
+
+
+@pytest.mark.parametrize("scale_bytes", [4, 2])
+@pytest.mark.parametrize("m,k,n,qb", [(m, k, n, qb) for m, k, n in PLAN_SHAPES
+                                      for qb in (16, 32, 64, 128) if k % (2 * qb) == 0],
+                         ids=str)
+def test_k4_plan_covers_the_output_and_fits_the_card(m, k, n, qb, scale_bytes):
+    def plan_of(m, k, n, qb, **kw):
+        return K4.plan_w4(m, k, n, qb, scale_bytes, **kw)
+
+    for p in forced_plans(plan_of, m, k, n, qb):
+        check_plan_covers_the_output(p, m, k // 2, n)
+        assert p["x_boxes"] == 2 and p["scale_tiles"] == 4
+    p = plan_of(m, k, n, qb)
+    assert p["stages"] >= 4
+    assert p["stage_bytes"] >= 2 * 128 * 128 + p["bn"] * 64 + 4 * p["srows"] * p["bn"] * \
+        scale_bytes
+    check_plan_fills_one_wave(p)
+
+
+def test_k4_plan_on_the_path():
+    """The T5 linears (f32 s, m) and the DiT's cross-attention k/v (bf16)
+    at 128 tokens: 256-column tiles, a four-stage ring of 56 or 52 KB
+    steps (two x boxes, the raw tile, four scale tiles), K3's clusters;
+    qblock 16 in f32 takes 128-column tiles to keep four stages."""
+    for (k, n), split in zip(PATH, (6, 2, 6)):
+        p = K4.plan_w4(128, k, n, 32, 4)
+        assert (p["bn"], p["stages"], p["stage_bytes"], p["split"]) == (256, 4, 57344, split)
+    p = K4.plan_w4(128, 4096, 4096, 32, 2)
+    assert (p["bn"], p["stages"], p["stage_bytes"], p["split"]) == (256, 4, 53248, 6)
+    p = K4.plan_w4(128, 4096, 4096, 16, 4)
+    assert (p["bn"], p["stages"], p["split"]) == (128, 4, 3)
+
+
+def magic_dequant_k4(w_p, s, m, qb):
+    """The card's dequant: each nibble in the mantissa of 2^23 (c = 2^23 +
+    q), then q * s as one FMA, c * s + (-2^23 * s) rounded once to f32 (in
+    float64 here, where that sum is exact), then + f32(m) rounded apart,
+    one bf16 rounding; low nibbles are logical rows 0 .. K/2 - 1."""
+    codes = torch.cat([w_p & 0xF, w_p >> 4], dim=0).to(torch.int32)
+    k, n = codes.shape
+    c = (codes | 0x4B000000).view(torch.float32).double().reshape(k // qb, qb, n)
+    sd = s.float().double()[:, None, :]
+    qs = (c * sd - 8388608.0 * sd).float()
+    # the FMA's q * s is the f32 product of the exact code and the scale
+    q = (c - 8388608.0).float()
+    assert torch.equal(qs, q * s.float()[:, None, :])
+    return (qs + m.float()[:, None, :]).reshape(k, n).to(torch.bfloat16)
+
+
+def _emulate_k4(x, w_p, s, m, bias, qb, plan, drop=None):
+    kh = w_p.shape[0]
+    w = magic_dequant_k4(w_p, s, m, qb)
+    assert torch.equal(w, K4.dequantize(w_p, s, m, qb))  # bit for bit
+
+    def rows_of(a, b):  # a step's packed rows hold logical rows j and K/2 + j
+        lo = torch.arange(64 * a, min(64 * b, kh))
+        return torch.cat([lo, lo + kh])
+
+    return emulate_split_k(x.to(torch.bfloat16).float(), w, plan, rows_of, bias, drop)
+
+
+EMU_SHAPES = [(128, 1024, 256, 32, "f32", False), (77, 512, 200, 16, "f32", True),
+              (256, 512, 384, 64, "bf16", True), (1, 1024, 136, 128, "bf16", False),
+              (130, 320, 72, 32, "f32", True)]
+
+
+def _k4_operands(rng, m, k, n, qb, scale, with_bias):
+    w = rng.normal(size=(k, n)).astype(np.float32) * 0.05
+    p, s, mn = J4.quantize_int4_blockwise(w, qb, scale_dtype=SCALE_DTYPES[scale][0])
+    dt = SCALE_DTYPES[scale][1]
+    ts, tm = (torch.from_numpy(np.asarray(a, np.float32)).to(dt) for a in (s, mn))
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32)) if with_bias else None
+    return (x, torch.from_numpy(p), ts, tm, bias), (p, s, mn)
+
+
+@pytest.mark.parametrize("m,k,n,qb,scale,with_bias", EMU_SHAPES, ids=str)
+def test_k4_schedule_emulated_matches_plain_and_pallas_interpret(rng, m, k, n, qb, scale,
+                                                                 with_bias):
+    (x, tp, ts, tm, bias), (p, s, mn) = _k4_operands(rng, m, k, n, qb, scale, with_bias)
+    want = K4.w4_matmul_plain(x, tp, ts, tm, bias, qb)
+
+    def plan_of(m, k, n, qb, **kw):
+        return K4.plan_w4(m, k, n, qb, ts.element_size(), **kw)
+
+    for plan in forced_plans(plan_of, m, k, n, qb):
+        got = _emulate_k4(x, tp, ts, tm, bias, qb, plan)
+        assert _rel(got.float().numpy(), want.float().numpy()) <= EMU_RTOL, plan["split"]
+    jax_y = J4.w4_matmul(jnp.asarray(x.float().numpy()), jnp.asarray(p), jnp.asarray(s),
+                         jnp.asarray(mn), None if bias is None else jnp.asarray(bias.numpy()),
+                         out_dtype=jnp.bfloat16, interpret=True, qblock=qb)
+    got = _emulate_k4(x, tp, ts, tm, bias, qb, plan_of(m, k, n, qb))
+    assert _rel(got.float().numpy(), np.asarray(jax_y, np.float32)) <= EMU_RTOL
+
+
+def test_k4_schedule_without_one_split_partial_is_wrong(rng):
+    m, k, n, qb = 128, 1024, 256, 32
+    plan = K4.plan_w4(m, k, n, qb)
+    assert plan["split"] == 8
+    (x, tp, ts, tm, bias), _ = _k4_operands(rng, m, k, n, qb, "f32", True)
+    want = K4.w4_matmul_plain(x, tp, ts, tm, bias, qb).float().numpy()
+    assert _rel(_emulate_k4(x, tp, ts, tm, bias, qb, plan).float().numpy(), want) <= EMU_RTOL
+    assert _rel(_emulate_k4(x, tp, ts, tm, bias, qb, plan, drop=1).float().numpy(),
+                want) > 100 * EMU_RTOL
+
+
+def test_k4_high_nibbles_need_their_own_groups(rng):
+    """The card's broken K4 scales the high nibbles by the low group's s
+    and m: the emulation with that dequant must fail the limit."""
+    m, k, n, qb = 128, 512, 128, 32
+    (x, tp, ts, tm, _), _ = _k4_operands(rng, m, k, n, qb, "f32", False)
+    half = ts.shape[0] // 2
+    lo_s, lo_m = torch.cat([ts[:half]] * 2), torch.cat([tm[:half]] * 2)
+    want = K4.w4_matmul_plain(x, tp, ts, tm, None, qb).float().numpy()
+    got = K4.w4_matmul_plain(x, tp, lo_s, lo_m, None, qb).float().numpy()
+    assert _rel(got, want) > 100 * EMU_RTOL
+
+
+@pytest.mark.parametrize("m,k,n,qb,scale_dtype", [(128, 4096, 4096, 32, torch.bfloat16),
+                                                  (77, 4096, 4008, 16, torch.float32)],
+                         ids=str)
+def test_k4_launches_once_on_its_plan_with_no_workspace(monkeypatch, m, k, n, qb,
+                                                        scale_dtype):
+    x = torch.empty(m, k, dtype=torch.bfloat16, device="meta")
+    w_p = torch.empty(k // 2, n, dtype=torch.uint8, device="meta")
+    s = torch.empty(k // qb, n, dtype=scale_dtype, device="meta")
+    bias = torch.empty(n, dtype=torch.bfloat16, device="meta")
+    lib, allocs = stub_card(monkeypatch, K4)
+    y = K4.w4_matmul(x, w_p, s, s, bias, qblock=qb)
+    assert y.shape == (m, n) and y.dtype == torch.bfloat16 and y.device.type == "meta"
+    assert allocs == [((m, n),)]  # the output, and no workspace
+    p = K4.plan_w4(m, k, n, qb, s.element_size())
+    assert len(lib.calls) == 1 and _build.LAUNCHES[K4.NAME] == 1
+    call = lib.calls[0]
+    assert len(call) == len(_build._SIGNATURES["cvt_w4_matmul"])
+    assert call[6:] == (m, k, n, p["n_pad"], qb, int(scale_dtype == torch.bfloat16), p["bn"],
+                        p["stages"], p["split"], p["smem_bytes"], 7)

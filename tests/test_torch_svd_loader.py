@@ -108,14 +108,14 @@ def test_svd_checkpoint_dir_loads_into_the_port(tmp_path):
                               num_attention_heads=(2, 4), addition_time_embed_dim=8,
                               projection_class_embeddings_input_dim=24)
     mine = PL.unet_params_from_state_dict(PLD.load_sharded(str(tmp_path / "unet")), ucfg,
-                                          dtype=torch.bfloat16)
+                                          device="cpu", dtype=torch.bfloat16)
     mine_vae = PV.vae_params_from_state_dict(PLD.load_sharded(str(tmp_path / "vae")),
                                              PCFG.SvdVaeConfig(block_out_channels=(32, 64),
                                                                layers_per_block=1),
-                                             dtype=torch.float32)
+                                             device="cpu", dtype=torch.float32)
     for name, t in unet.state_dict().items():
         assert torch.equal(mine.state_dict()[name], t.bfloat16()), name
     for name, t in vae.state_dict().items():
         assert torch.equal(mine_vae.state_dict()[name], t.bfloat16().float()), name
     with pytest.raises(KeyError, match="mismatch"):
-        PL.unet_params_from_state_dict({"conv_in.weight": torch.zeros(1)}, ucfg)
+        PL.unet_params_from_state_dict({"conv_in.weight": torch.zeros(1)}, ucfg, "cpu")

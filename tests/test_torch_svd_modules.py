@@ -176,7 +176,7 @@ def clip_pair():
     sd["vision_model.embeddings.position_ids"] = np.arange(5)[None]  # older checkpoints
     params = JC.params_from_hf_state_dict(sd, JCFG.ClipEncoderConfig(**TINY_CLIP), jnp.float32)
     cfg = PCFG.ClipEncoderConfig(**TINY_CLIP)
-    return (params, PC.params_from_hf_state_dict(sd, cfg),
+    return (params, PC.params_from_hf_state_dict(sd, cfg, "cpu"),
             PCV.clip_from_jax(_tree(params), cfg), hf)
 
 
@@ -225,7 +225,7 @@ def unet_pair():
     sd = {k: v.numpy() for k, v in mirror.state_dict().items()}
     params = junet(sd, jnp.float32)
     cfg = PCFG.SvdUnetConfig(**UNET)
-    return params, PL.unet_params_from_state_dict(sd, cfg), PCV.unet_from_jax(_tree(params), cfg)
+    return params, PL.unet_params_from_state_dict(sd, cfg, "cpu"), PCV.unet_from_jax(_tree(params), cfg)
 
 
 def test_unet_matches_jax_through_k6_and_k1_routes(unet_pair, rng, monkeypatch):
@@ -292,7 +292,7 @@ def vae_pair():
     sd = {k: v.numpy() for k, v in mirror.state_dict().items()}
     params = JV.vae_params_from_state_dict(sd, jnp.float32)
     cfg = PCFG.SvdVaeConfig(**VAE)
-    return (params, PV.vae_params_from_state_dict(sd, cfg),
+    return (params, PV.vae_params_from_state_dict(sd, cfg, "cpu"),
             PCV.vae_from_jax(_tree(params), cfg))
 
 

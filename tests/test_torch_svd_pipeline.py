@@ -79,9 +79,9 @@ def pipes():
                            clip_params=JC.params_from_hf_state_dict(clip_sd, jcfg.clip,
                                                                      jnp.float32))
     ppipe = PP.SvdPipeline(config=pcfg,
-                           unet=PL.unet_params_from_state_dict(unet_sd, pcfg.unet),
-                           vae=PV.vae_params_from_state_dict(vae_sd, pcfg.vae),
-                           clip=PC.params_from_hf_state_dict(clip_sd, pcfg.clip))
+                           unet=PL.unet_params_from_state_dict(unet_sd, pcfg.unet, "cpu"),
+                           vae=PV.vae_params_from_state_dict(vae_sd, pcfg.vae, "cpu"),
+                           clip=PC.params_from_hf_state_dict(clip_sd, pcfg.clip, "cpu"))
     return jpipe, ppipe
 
 

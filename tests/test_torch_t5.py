@@ -203,7 +203,7 @@ def test_gguf_keep_quantized_carries_match_jax_bit_for_bit(tmp_path, rng):
     path = _kquant_gguf(tmp_path, rng, GGUF_TYPES)
     cfg = T5Config(**GGUF_CFG)
     want = JT5.params_from_gguf(path, JT5.T5Config(**GGUF_CFG), keep_quantized=True)
-    enc = PT5.t5_from_gguf(path, cfg, keep_quantized=True)  # bf16, as the JAX default
+    enc = PT5.t5_from_gguf(path, cfg, "cpu", keep_quantized=True)  # bf16, as the JAX default
     kinds = {DQ.GGML_Q4_K: Int4Linear, None: Int8Linear}
     for i, blk in enumerate(enc.blocks):
         for role, (group, name) in ROLES.items():
@@ -233,7 +233,8 @@ def test_gguf_forward_matches_jax(tmp_path, rng, keep_quantized):
     want = np.asarray(JT5.forward(
         JT5.params_from_gguf(path, jcfg, dtype=jnp.float32, keep_quantized=keep_quantized),
         jcfg, jnp.asarray(ids), attention_mask=jnp.asarray(mask)))
-    enc = PT5.t5_from_gguf(path, pcfg, dtype=torch.float32, keep_quantized=keep_quantized)
+    enc = PT5.t5_from_gguf(path, pcfg, "cpu", torch.float32,
+                           keep_quantized=keep_quantized)
     if not keep_quantized:
         assert isinstance(enc.blocks[0].q, torch.nn.Linear)
     got = enc(torch.from_numpy(ids.astype(np.int64)),
