@@ -1,13 +1,20 @@
-"""LTX-Video text-to-video CLI of the PyTorch port, random-init smoke mode.
+"""LTX-Video text-to-video CLI of the PyTorch port (``candle_video_tpu/cli.py``).
 
-Builds a preset's full-width modules with random weights from ``--seed``
-(DiT and VAE in ``--dtype``, or the DiT's block linears as weight-only int8
-or int4 with ``--dit-int8`` / ``--dit-int4``; T5-XXL with int8 weights
-resident, or loaded from ``--t5-gguf``) on ``--device`` and runs one
-generation.  Loading DiT and VAE checkpoints is not ported yet.
+With ``--weights-path`` the DiT and the VAE decoder come from a checkpoint:
+an official single ``.safetensors`` file (split by ``weight_format``) or a
+diffusers directory (``transformer/``, ``vae/``).  The DiT loads in
+``--dtype``, or with ``--dit-int8`` / ``--dit-int4`` its block linears are
+quantized on the host straight off the file, layer by layer.  The T5-XXL
+comes from ``--t5-gguf`` or ``--t5-dir`` (a HuggingFace ``text_encoder/``);
+with neither, prompts map to random embeddings (a warning says so) unless
+``--embeddings-file`` gives them.  Without ``--weights-path`` every module
+is random from ``--seed`` (smoke mode: the DiT in ``--dtype`` or int8 /
+int4, the T5-XXL with int8 weights resident or from ``--t5-gguf``).
 
-Run: python -m candle_video_tpu_torch.cli --height 256 --width 384 \
-         --num-frames 25 --output-type latent
+Run: python -m candle_video_tpu_torch.cli --weights-path ltxv-2b-0.9.8-distilled.safetensors \
+         --t5-dir text_encoder --tokenizer tokenizer.json --dit-int8
+     python -m candle_video_tpu_torch.cli --height 256 --width 384 \
+         --num-frames 25 --output-type latent          # random weights
      python -m candle_video_tpu_torch.cli --version 0.9.8-13b-distilled \
          --dit-int4 --height 256 --width 384 --num-frames 25 --output-type latent
 
@@ -19,19 +26,23 @@ from __future__ import annotations
 
 import argparse
 import os
+import signal
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from .models.ltx_video import loader as L
 from .models.ltx_video import t5 as T5
 from .models.ltx_video import transformer as TF
 from .models.ltx_video import vae as V
 from .models.ltx_video.configs import get_config_by_version, t5_xxl
 from .models.ltx_video.pipeline import LtxPipeline, generate
+from .models.ltx_video.weight_format import detect_format, split_unified_state_dict
 from .parallel import make_mesh
-from .utils.tokenizer import MockTokenizer
+from .utils.tokenizer import MockTokenizer, T5TokenizerWrapper
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,8 +55,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", type=str, default="0.9.8-2b-distilled",
                    help="preset: 0.9.5 | 0.9.6-dev | 0.9.6-distilled | "
                         "0.9.8-2b-distilled | 0.9.8-13b-dev | 0.9.8-13b-distilled")
+    p.add_argument("--weights-path", type=str, default=None,
+                   help="an official single .safetensors file, or a diffusers directory "
+                        "with transformer/ and vae/; without it every module is random "
+                        "(smoke mode)")
     p.add_argument("--t5-gguf", type=str, default=None,
                    help="GGUF file for the quantized T5-XXL encoder")
+    p.add_argument("--t5-dir", type=str, default=None,
+                   help="HuggingFace T5 text_encoder directory (safetensors), loaded dense "
+                        "in --dtype")
+    p.add_argument("--tokenizer", type=str, default=None,
+                   help="tokenizer.json of the T5 (needs the tokenizers package); default: "
+                        "a hash tokenizer")
     p.add_argument("--t5-keep-quantized", action="store_true",
                    help="keep the GGUF T5 weights quantized on the card (Q4_K as packed "
                         "nibbles on K4, the other types as int8 on K3); default "
@@ -59,8 +80,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--width", type=int, default=768)
     p.add_argument("--num-frames", type=int, default=97)
+    p.add_argument("--frame-rate", type=float, default=25.0)
     p.add_argument("--num-inference-steps", type=int, default=None)
     p.add_argument("--guidance-scale", type=float, default=None)
+    p.add_argument("--guidance-rescale", type=float, default=None)
+    p.add_argument("--stg-scale", type=float, default=None)
+    p.add_argument("--skip-block-list", type=int, nargs="*", default=None)
+    p.add_argument("--num-videos-per-prompt", type=int, default=1)
+    p.add_argument("--max-sequence-length", type=int, default=128)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--pcg-rng", action=argparse.BooleanOptionalAction, default=True,
                    help="initial latents from the deterministic PCG32 RNG (the default, "
@@ -68,13 +95,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "jax.random.normal(PRNGKey(seed))")
     p.add_argument("--output-type", type=str, default="tensor", choices=["tensor", "latent"])
     p.add_argument("--output-dir", type=str, default="output")
+    p.add_argument("--embeddings-file", type=str, default=None,
+                   help="safetensors with prompt_embeds / prompt_attention_mask (and "
+                        "negative_*): the text encoder does not run")
+    p.add_argument("--initial-latents-file", type=str, default=None,
+                   help="safetensors with a 'latents' tensor [B,S,C] or [B,C,F,H,W]")
+    p.add_argument("--save-final-latents", type=str, default=None,
+                   help="also write the final latents [B,S,C] f32 to this safetensors "
+                        "file, key 'latents'")
+    p.add_argument("--save-frames", action="store_true",
+                   help="also write one PNG a frame (needs Pillow)")
     p.add_argument("--gif", action="store_true", help="also write video.gif (needs imageio)")
     p.add_argument("--mp4", action="store_true", help="also write video.mp4 (needs imageio)")
     p.add_argument("--vae-stream-chunks", type=int, default=0,
                    help="decode with the exact streamed tail in N temporal chunks "
                         "(overlap-save conv caches, zero recompute); default: the mode "
                         "select_decode_mode picks from the free card memory")
-    p.add_argument("--progress", action="store_true", help="print a line per denoise step")
+    p.add_argument("--progress", action="store_true",
+                   help="print a line per denoise step; Ctrl-C then stops after the "
+                        "current step (cooperative interrupt)")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float32"],
                    help="model dtype; the CUDA kernels take bfloat16")
     p.add_argument("--device", type=str, default="cuda",
@@ -136,13 +175,12 @@ _T5_INITS = {"int8": T5.init_random_int8, "w4": T5.init_random_w4}
 
 def build_random_pipeline(version: str, device, dtype=torch.bfloat16, seed: int = 0,
                           max_sequence_length: int = 128, dit_quant: str | None = None,
-                          t5_quant: str = "int8", t5_gguf: str | None = None,
-                          t5_keep_quantized: bool = False) -> LtxPipeline:
+                          t5_quant: str = "int8", t5=None) -> LtxPipeline:
     """A preset's full-width pipeline with random weights made on ``device``
     from ``seed``: VAE decoder in ``dtype``; DiT in ``dtype``, or with its
     block linears as weight-only int8 (``dit_quant="w8"``) or int4 (``"w4"``);
     T5-XXL resident with int8 (``t5_quant="int8"``) or Q4_K-form 4-bit
-    (``"w4"``) weights, or loaded from the GGUF file ``t5_gguf``."""
+    (``"w4"``) weights, unless a loaded encoder ``t5`` is given."""
     if dit_quant not in _DIT_INITS or t5_quant not in _T5_INITS:
         raise ValueError(f"dit_quant {dit_quant!r} not in {sorted(map(str, _DIT_INITS))} "
                          f"or t5_quant {t5_quant!r} not in {sorted(_T5_INITS)}")
@@ -152,9 +190,7 @@ def build_random_pipeline(version: str, device, dtype=torch.bfloat16, seed: int 
     transformer = _DIT_INITS[dit_quant](cfg.transformer, device, dtype, generator=g)
     vae = V.init_random(cfg.vae, device, dtype, generator=g)
     t5_cfg = t5_xxl()
-    if t5_gguf:
-        t5 = T5.t5_from_gguf(t5_gguf, t5_cfg, device, dtype, keep_quantized=t5_keep_quantized)
-    else:
+    if t5 is None:
         t5 = _T5_INITS[t5_quant](t5_cfg, device, dtype)
     return LtxPipeline(config=cfg, transformer=transformer, vae=vae, t5=t5,
                        t5_config=t5_cfg,
@@ -169,11 +205,67 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+def _dit_quant(args):
     if args.dit_int8 and args.dit_int4:
         raise SystemExit("--dit-int8 and --dit-int4 are mutually exclusive")
-    dit_quant = "w8" if args.dit_int8 else ("w4" if args.dit_int4 else None)
+    return "w8" if args.dit_int8 else ("w4" if args.dit_int4 else None)
+
+
+def load_t5(args, device, dtype):
+    """The T5-XXL from ``--t5-gguf`` or ``--t5-dir``, else None."""
+    if args.t5_gguf:
+        print(f"Loading GGUF T5: {args.t5_gguf}")
+        return T5.t5_from_gguf(args.t5_gguf, t5_xxl(), device, dtype,
+                               keep_quantized=args.t5_keep_quantized)
+    if args.t5_dir:
+        print(f"Loading T5 dir: {args.t5_dir}")
+        return T5.t5_from_hf_state_dict(L.load_sharded(args.t5_dir), t5_xxl(), device, dtype)
+    return None
+
+
+_DIT_LOADERS = {None: L.transformer_from_state_dict, "w8": L.transformer_w8_from_state_dict,
+                "w4": L.transformer_w4_from_state_dict}
+
+
+def load_pipeline(args, device, dtype) -> LtxPipeline:
+    """The pipeline the arguments ask for (JAX ``cli.load_pipeline``): the
+    DiT and the VAE decoder from ``--weights-path`` (an official file through
+    ``detect_format`` and ``split_unified_state_dict``, or a diffusers
+    directory's ``transformer/`` and ``vae/``), the DiT dense or streamed
+    into int8 / int4; the T5 from ``--t5-gguf`` / ``--t5-dir``.  Without
+    ``--weights-path``, ``build_random_pipeline`` (random from ``--seed``,
+    with its resident int8 T5 unless a T5 file is given)."""
+    cfg = get_config_by_version(args.version)
+    dit_quant = _dit_quant(args)
+    tokenizer = (T5TokenizerWrapper(args.tokenizer, args.max_sequence_length) if args.tokenizer
+                 else MockTokenizer(model_max_length=args.max_sequence_length))
+    if not args.weights_path:
+        print("No --weights-path: random-init DiT and VAE (smoke mode)")
+        pipe = build_random_pipeline(args.version, device, dtype, seed=args.seed,
+                                     dit_quant=dit_quant, t5=load_t5(args, device, dtype))
+        pipe.tokenizer = tokenizer
+        return pipe
+    fmt = detect_format(args.weights_path)
+    print(f"Loading weights ({fmt}): {args.weights_path}")
+    if fmt == "official":
+        tsd, vsd = split_unified_state_dict(L.load_safetensors(args.weights_path))
+    else:
+        tsd = L.load_sharded(os.path.join(args.weights_path, "transformer"))
+        vsd = L.load_sharded(os.path.join(args.weights_path, "vae"))
+    if dit_quant:
+        bits = 8 if dit_quant == "w8" else 4
+        print(f"Loading DiT as weight-only int{bits} (W{bits}A16), quantized on the host "
+              "layer by layer")
+    transformer = _DIT_LOADERS[dit_quant](tsd, cfg.transformer, device, dtype)
+    vae = L.vae_decoder_from_state_dict(vsd, cfg.vae, device, dtype)
+    return LtxPipeline(config=cfg, transformer=transformer, vae=vae,
+                       t5=load_t5(args, device, dtype), t5_config=t5_xxl(),
+                       tokenizer=tokenizer)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    dit_quant = _dit_quant(args)
     mesh = parse_mesh(args.mesh) if args.mesh else None
     if mesh is not None and dit_quant:
         flag = "--dit-int4" if args.dit_int4 else "--dit-int8"
@@ -183,15 +275,37 @@ def main(argv=None) -> int:
         raise SystemExit(f"--mesh dp={mesh['dp']} shards the batch, and the CLI generates "
                          "one video: use dp=1")
     if mesh is not None and mesh["sp"] > 1:
-        if args.progress:
-            raise SystemExit("--progress is a step callback, which the sequence-parallel "
-                             "loop does not take: drop it with --mesh sp=N")
+        if args.progress or (args.save_final_latents and args.output_type != "latent"):
+            raise SystemExit("--progress, and --save-final-latents beside a video, take a "
+                             "step callback, which the sequence-parallel loop does not: "
+                             "drop them with --mesh sp=N")
         sp_mesh = init_distributed(mesh, args.device)
         try:
             return _run(args, dit_quant, sp_mesh.device, sp_mesh)
         finally:
             dist.destroy_process_group()
     return _run(args, dit_quant, resolve_device(args.device))
+
+
+def _prompt_kwargs(args, pipe) -> dict:
+    """The prompt (for the T5), the embeddings of ``--embeddings-file``, or,
+    with no T5, random embeddings (as the JAX CLI's smoke mode)."""
+    if args.embeddings_file:
+        emb = L.load_safetensors(args.embeddings_file)
+        names = ["prompt_embeds", "prompt_attention_mask"]
+        if "negative_prompt_embeds" in emb:
+            names += ["negative_prompt_embeds", "negative_prompt_attention_mask"]
+        return {k: emb[k] for k in names}
+    if pipe.t5 is not None:
+        return dict(prompt=args.prompt, negative_prompt=args.negative_prompt)
+    print("WARNING: no T5 weights given; using random embeddings (smoke mode). Pass "
+          "--t5-gguf/--t5-dir or --embeddings-file for real runs.")
+    shape = (1, args.max_sequence_length, pipe.config.transformer.caption_channels)
+    embeds = torch.from_numpy(np.random.default_rng(0).normal(size=shape) * 0.02).float()
+    mask = torch.ones(shape[:2])
+    return dict(prompt_embeds=embeds, prompt_attention_mask=mask,
+                negative_prompt_embeds=torch.zeros_like(embeds),
+                negative_prompt_attention_mask=mask)
 
 
 def _run(args, dit_quant, device, sp_mesh=None) -> int:
@@ -202,26 +316,46 @@ def _run(args, dit_quant, device, sp_mesh=None) -> int:
         + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
         + (f" | DiT weight-only {dit_quant}" if dit_quant else "")
         + (f" | mesh dp={sp_mesh.dp} sp={sp_mesh.sp} (ring attention)" if sp_mesh else ""))
-    say("random-init DiT and VAE (smoke mode): their checkpoint loading is not ported yet"
-        + (f"; T5 from {args.t5_gguf}" if args.t5_gguf else ""))
     t0 = time.perf_counter()
-    pipe = build_random_pipeline(args.version, device, dtype, seed=args.seed,
-                                 dit_quant=dit_quant, t5_gguf=args.t5_gguf,
-                                 t5_keep_quantized=args.t5_keep_quantized)
-    say(f"built pipeline in {time.perf_counter() - t0:.2f}s")
+    pipe = load_pipeline(args, device, dtype)
+    say(f"loaded pipeline in {time.perf_counter() - t0:.2f}s")
 
+    kwargs = _prompt_kwargs(args, pipe)
+    if args.initial_latents_file:
+        kwargs["latents"] = L.load_safetensors(args.initial_latents_file)["latents"]
+    final = {}
     step_callback = None
-    if args.progress:
+    if sp_mesh is None:
         def step_callback(i, n, lat):
-            print(f"Step {i + 1}/{n}", flush=True)
+            final["latents"] = lat
+            if args.progress:
+                print(f"Step {i + 1}/{n}", flush=True)
+
+    previous = None
+    if args.progress:
+        def on_sigint(sig, frame):
+            print("\ninterrupt requested: finishing the current step...", flush=True)
+            pipe.interrupt = True
+
+        previous = signal.signal(signal.SIGINT, on_sigint)
 
     t0 = time.perf_counter()
-    out = generate(pipe, prompt=args.prompt, negative_prompt=args.negative_prompt,
-                   height=args.height, width=args.width, num_frames=args.num_frames,
-                   num_inference_steps=args.num_inference_steps,
-                   guidance_scale=args.guidance_scale, seed=args.seed,
-                   use_pcg_rng=args.pcg_rng, output_type=args.output_type, step_callback=step_callback,
-                   vae_tail_stream_chunks=args.vae_stream_chunks, sp_mesh=sp_mesh)
+    try:
+        out = generate(pipe, height=args.height, width=args.width,
+                       num_frames=args.num_frames, frame_rate=args.frame_rate,
+                       num_inference_steps=args.num_inference_steps,
+                       guidance_scale=args.guidance_scale,
+                       guidance_rescale=args.guidance_rescale, stg_scale=args.stg_scale,
+                       skip_block_list=args.skip_block_list,
+                       num_videos_per_prompt=args.num_videos_per_prompt, seed=args.seed,
+                       max_sequence_length=args.max_sequence_length,
+                       use_pcg_rng=args.pcg_rng, output_type=args.output_type,
+                       step_callback=step_callback,
+                       vae_tail_stream_chunks=args.vae_stream_chunks, sp_mesh=sp_mesh,
+                       **kwargs)
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGINT, previous)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     say(f"generation took {time.perf_counter() - t0:.2f}s, output {tuple(out.shape)}")
@@ -231,23 +365,33 @@ def _run(args, dit_quant, device, sp_mesh=None) -> int:
         return 0
 
     os.makedirs(args.output_dir, exist_ok=True)
-    if args.output_type == "latent":
-        path = os.path.join(args.output_dir, "latents.pt")
-        torch.save(out.cpu(), path)
-        print(f"saved latents: {path}")
-        return 0
+    if args.output_type == "latent" or args.save_final_latents:
+        latents = out if args.output_type == "latent" else final.get("latents")
+        path = args.save_final_latents or os.path.join(args.output_dir, "latents.safetensors")
+        if latents is None:
+            print(f"no denoise step ran (interrupted): {path} not written")
+        else:
+            L.save_safetensors({"latents": latents.float()}, path)
+            print(f"saved latents: {path}")
+        if args.output_type == "latent":
+            return 0
     from .utils import video_io
 
     video = out.cpu().numpy()
     path = os.path.join(args.output_dir, "video_uint8.npy")
-    import numpy as np
-
     np.save(path, video_io.to_uint8_frames(video))
     print(f"saved frames [F,H,W,C] uint8: {path}")
+    if args.save_frames:
+        paths = video_io.save_frames_png(video, args.output_dir)
+        print(f"saved {len(paths)} PNG frames to {args.output_dir}")
     if args.gif:
-        print(f"saved GIF: {video_io.save_gif(video, os.path.join(args.output_dir, 'video.gif'))}")
+        path = video_io.save_gif(video, os.path.join(args.output_dir, "video.gif"),
+                                 args.frame_rate)
+        print(f"saved GIF: {path}")
     if args.mp4:
-        print(f"saved video: {video_io.save_mp4(video, os.path.join(args.output_dir, 'video.mp4'))}")
+        path = video_io.save_mp4(video, os.path.join(args.output_dir, "video.mp4"),
+                                 args.frame_rate)
+        print(f"saved video: {path}")
     return 0
 
 

@@ -87,10 +87,6 @@ def t5_xxl() -> T5Config:
     return T5Config()
 
 
-def t5_xxl() -> T5Config:
-    return T5Config()
-
-
 @dataclasses.dataclass(frozen=True)
 class LtxInferenceConfig:
     """Mirror of LTXVInferenceConfig (configs.rs:11-37)."""

@@ -112,17 +112,23 @@ def denoise_loop(transformer, latents, encoder_hidden_states, encoder_attention_
                  schedule: S.Schedule, rope_cos, rope_sin, *, num_conds: int = 1,
                  guidance_scale: float = 1.0, guidance_rescale: float = 0.0,
                  stg_scale: float = 0.0, skip_layer_mask=None, stochastic: bool = False,
-                 noise_key=None, step_callback=None, step_seconds: Optional[list] = None):
+                 noise_key=None, step_callback=None, step_seconds: Optional[list] = None,
+                 interrupted=None):
     """Euler steps over ``schedule``; returns final latents [B, S, C] f32.
     With ``stochastic``, step i draws its noise from the second half of
     ``split`` of the i-th key of the chain that starts at ``noise_key``
     (``utils.rng.prng_key``), as the JAX ``denoise_loop`` does.
-    ``step_seconds``, when a list, receives each step's synchronised time."""
+    ``step_seconds``, when a list, receives each step's synchronised time.
+    ``interrupted``, a callable, is asked before each step; when it answers
+    true the loop stops and returns the latents of the steps so far (the
+    JAX ``denoise_stepwise``'s cooperative interrupt)."""
     lat = latents.float()
     key = noise_key
     b = lat.shape[0]
     n = schedule.timesteps.shape[0]
     for i in range(n):
+        if interrupted is not None and interrupted():
+            break
         t0 = time.perf_counter()
         t, sigma, sigma_next = (float(schedule.timesteps[i]), float(schedule.sigmas[i]),
                                 float(schedule.sigmas[i + 1]))
@@ -161,6 +167,12 @@ class LtxPipeline:
     t5: Any = None  # t5.T5Encoder
     t5_config: Optional[T5Config] = None
     tokenizer: Any = None  # utils.tokenizer.MockTokenizer or a T5 wrapper
+    # cooperative interrupt: generate() stops before the next denoise step
+    # once it is set (the CLI's --progress sets it on Ctrl-C)
+    interrupt: bool = False
+    # prompt-embedding cache, first in first out; 0 turns it off
+    embedding_cache_size: int = 16
+    _embed_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def device(self):
@@ -168,13 +180,22 @@ class LtxPipeline:
 
     @torch.no_grad()
     def encode_prompt(self, prompts: Sequence[str], max_sequence_length: int = 128):
-        """Returns (embeds [B, L, d_model], mask [B, L] f32)."""
+        """Returns (embeds [B, L, d_model], mask [B, L] f32), from the cache
+        when the same prompts were encoded at the same length before."""
         if self.tokenizer is None or self.t5 is None:
             raise ValueError("pipeline has no tokenizer/text encoder")
+        key = (tuple(prompts), max_sequence_length)
+        if key in self._embed_cache:
+            return self._embed_cache[key]
         ids, mask = self.tokenizer.encode_batch(list(prompts), max_sequence_length)
         ids = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
         mask = torch.from_numpy(np.asarray(mask, np.float32)).to(self.device)
-        return self.t5(ids, attention_mask=mask), mask
+        result = (self.t5(ids, attention_mask=mask), mask)
+        if self.embedding_cache_size > 0:
+            if len(self._embed_cache) >= self.embedding_cache_size:
+                self._embed_cache.pop(next(iter(self._embed_cache)))
+            self._embed_cache[key] = result
+        return result
 
     def __call__(self, **kwargs):
         return generate(self, **kwargs)
@@ -401,8 +422,8 @@ def generate(
     else:
         final = denoise_loop(pipe.transformer, latents, enc_states, enc_mask, schedule,
                              rope_cos, rope_sin, stochastic=stochastic,
-                             noise_key=R.prng_key(seed + 1),
-                             step_callback=step_callback, **guidance)
+                             noise_key=R.prng_key(seed + 1), step_callback=step_callback,
+                             interrupted=lambda: pipe.interrupt, **guidance)
     if timing:
         stage_times["denoise_steps"] = step_seconds
     if output_type == "latent":

@@ -7,7 +7,8 @@ final RMSNorm.  Each linear is dense (``nn.Linear``) or a weight-only carry
 K-quant affine part as a rank-G correction ``groupsum(x) @ b``, or the
 true-4-bit Q4_K carry ``{w4, w4_scale, w4_min}`` on K4, whose min is fused
 in the dequant (no correction).  ``t5_from_gguf`` loads a GGUF file into
-either form.
+either form; ``t5_from_hf_state_dict`` a HuggingFace ``T5EncoderModel``
+state dict into dense linears.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from ...ops.norms import rms_norm
 from ...ops.quant_linear import Int4Linear, Int8Linear
 from ...utils.device import loader_device
 from .configs import T5Config
+from .loader import LoaderError
 
 
 def relative_position_bucket(relative_position: np.ndarray, num_buckets: int = 32,
@@ -245,3 +247,40 @@ def t5_from_gguf(path: str, cfg: T5Config, device="cuda", dtype=torch.bfloat16,
                          norm("enc.output_norm.weight")).eval()
     finally:
         f.close()
+
+
+# a block's linears -> their names under ``encoder.block.N.`` in a
+# HuggingFace T5 state dict
+HF_LINEARS = {"q": "layer.0.SelfAttention.q", "k": "layer.0.SelfAttention.k",
+              "v": "layer.0.SelfAttention.v", "o": "layer.0.SelfAttention.o",
+              "wi_0": "layer.1.DenseReluDense.wi_0", "wi_1": "layer.1.DenseReluDense.wi_1",
+              "wo": "layer.1.DenseReluDense.wo"}
+
+
+@torch.no_grad()
+def t5_from_hf_state_dict(sd, cfg: T5Config, device="cuda", dtype=torch.bfloat16,
+                          prefix: str = "") -> T5Encoder:
+    """T5 encoder from a HuggingFace ``T5EncoderModel`` state dict (names
+    ``encoder.block.N.layer.{0,1}...``; JAX ``params_from_hf_state_dict``):
+    every linear dense in ``dtype`` (``[out, in]`` as stored), the relative
+    attention bias of block 0 in f32, the embedding from ``shared.weight``
+    or else ``encoder.embed_tokens.weight``.  Each tensor goes to
+    ``device`` as it is read.  A missing tensor raises ``LoaderError``."""
+    device = loader_device(device)
+
+    def t(name, to=dtype):
+        if prefix + name not in sd:
+            raise LoaderError(f"missing tensor {prefix + name}")
+        return sd[prefix + name].to(device=device, dtype=to)
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        pre = f"encoder.block.{i}"
+        lins = {k: dense_linear(t(f"{pre}.{v}.weight").t()) for k, v in HF_LINEARS.items()}
+        blocks.append(T5Block(cfg, lins, t(f"{pre}.layer.0.layer_norm.weight"),
+                              t(f"{pre}.layer.1.layer_norm.weight")))
+    # HF stores the relative bias as an embedding table [num_buckets, num_heads]
+    rel = t("encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+            torch.float32)
+    emb = "shared.weight" if prefix + "shared.weight" in sd else "encoder.embed_tokens.weight"
+    return T5Encoder(cfg, t(emb), blocks, rel, t("encoder.final_layer_norm.weight")).eval()

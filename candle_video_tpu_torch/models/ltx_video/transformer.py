@@ -275,19 +275,32 @@ def quantize_transformer_w8a8(model):
     return model
 
 
-def _init_random_quantized(cfg, device, dtype, generator, make_linear):
-    """Random DiT whose block linears come from ``make_linear(d_in, d_out,
-    bias)``; the dense block weights are never allocated."""
+def quantized_skeleton(cfg: LtxTransformerConfig, device, dtype=torch.bfloat16):
+    """The DiT with every block linear of ``QUANTIZED_LINEARS`` left out
+    (an ``nn.Identity`` in its place) and the rest allocated on ``device``,
+    uninitialised: the dense block weights are never allocated.  Returns
+    (model, slots), a slot being (parent module, attribute, the linear's
+    name in the model, in features, out features, whether the config gives
+    it a bias)."""
     with torch.device("meta"):
         model = LtxTransformer3D(cfg, dtype)
     slots = []
-    for parent, name in quantized_slots(model):
-        lin = getattr(parent, name)
-        slots.append((parent, name, lin.in_features, lin.out_features, lin.bias is not None))
-        setattr(parent, name, nn.Identity())
-    model = model.to_empty(device=device)
+    for i, blk in enumerate(model.blocks):
+        for group, name in QUANTIZED_LINEARS:
+            parent = getattr(blk, group)
+            lin = getattr(parent, name)
+            slots.append((parent, name, f"blocks.{i}.{group}.{name}", lin.in_features,
+                          lin.out_features, lin.bias is not None))
+            setattr(parent, name, nn.Identity())
+    return model.to_empty(device=device), slots
+
+
+def _init_random_quantized(cfg, device, dtype, generator, make_linear):
+    """Random DiT whose block linears come from ``make_linear(d_in, d_out,
+    bias)``; the dense block weights are never allocated."""
+    model, slots = quantized_skeleton(cfg, device, dtype)
     _init_dense_(model, generator)
-    for parent, name, d_in, d_out, has_bias in slots:
+    for parent, name, _, d_in, d_out, has_bias in slots:
         bias = torch.zeros(d_out, dtype=dtype, device=device) if has_bias else None
         setattr(parent, name, make_linear(d_in, d_out, bias))
     return model.eval()

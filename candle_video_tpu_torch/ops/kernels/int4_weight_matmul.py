@@ -15,8 +15,11 @@ Two dequant orders exist, as in the JAX package, and they are kept apart:
   bf16 (the DiT's choice) the product and the sum are each rounded to bf16,
   which differs from the kernel route in over a third of the weights.
 
-CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise.  The kernel is the W4 instance of ``csrc/weight_only_matmul_hopper.cu``
+CPU tensors take the plain version.  CUDA tensors launch the kernel, or,
+for a qblock the kernel is not built for (``qblock_ok``), chosen by shape
+before any launch, take the transient route in the kernel's f32 order
+(counted as ``w4_matmul_dequant``), so every qblock the JAX ``w4_matmul``
+takes runs.  The kernel is the W4 instance of ``csrc/weight_only_matmul_hopper.cu``
 (K3 is its other format), on the plan ``plan_w4``: K3's ``plan_weight_only``
 over the K/2 packed rows, with two x boxes a step (the low and the high
 half of K) and four scale tiles (s and m of both halves).  A payload whose
@@ -34,10 +37,11 @@ import numpy as np
 import torch
 
 from . import _build
-from .int8_weight_matmul import (H100_CLUSTERS, cluster_slots, dot_bf16, pad_columns,
-                                 plan_weight_only, qblock_ok)
+from .int8_weight_matmul import (H100_CLUSTERS, cluster_slots, count_dequant_route, dot_bf16,
+                                 pad_columns, plan_weight_only, qblock_ok)
 
 NAME = "w4_matmul"
+DEQUANT_NAME = "w4_matmul_dequant"  # the transient route on the card
 QBLOCK4 = 32  # GGUF Q4_K sub-block size along K
 W4_XLA_MIN_M = 1024
 _SCALE_DTYPES = (torch.float32, torch.bfloat16)
@@ -135,6 +139,7 @@ def w4_matmul_xla_equivalent(x, w_p, s_w, m_w, bias=None, qblock: int = QBLOCK4,
                              out_dtype=None, compute_dtype=torch.float32):
     """The JAX ``w4_matmul_xla`` route: dequant in ``compute_dtype`` into a
     transient bf16 weight, then one matmul with f32 accumulation."""
+    count_dequant_route(x, DEQUANT_NAME)
     out_dtype = out_dtype or x.dtype
     w = dequantize(w_p, s_w, m_w, qblock, compute_dtype)
     return _with_bias(dot_bf16(x, w, out_dtype), bias, out_dtype)
@@ -207,6 +212,8 @@ def w4_matmul(x, w_p, s_w, m_w, bias=None, qblock: int = QBLOCK4, out_dtype=None
     bf16), bias [N] -> [M, N]."""
     if x.device.type == "cpu":
         return w4_matmul_plain(x, w_p, s_w, m_w, bias, qblock, out_dtype)
+    if not qblock_ok(qblock):  # the transient route, in the kernel's f32 order
+        return w4_matmul_xla_equivalent(x, w_p, s_w, m_w, bias, qblock, out_dtype)
     if out_dtype not in (None, torch.bfloat16):
         raise TypeError(f"{NAME}: the kernel writes bfloat16, not {out_dtype}")
     return _launch(x, w_p, s_w, m_w, None if bias is None else bias.to(torch.bfloat16), qblock)

@@ -12,11 +12,15 @@ cluster of CTAs along K where the output tiles alone leave the card's SMs
 idle.  TMA's row pitch must be a multiple of 16 bytes, so a payload whose
 N is not is padded with zero columns per call; the output keeps its N.
 
-CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
+CPU tensors take the plain version.  CUDA tensors launch the kernel, or,
+for a qblock the kernel is not built for (``qblock_ok``: 8, 48, 96, ...),
+chosen by shape before any launch, take the transient dequant route (the
+weight dequantized into a transient bf16 buffer, then one bf16
+``torch.matmul``; counted as ``w8_matmul_dequant``), so every qblock that
+divides K runs, as in the JAX ``w8_matmul``.
 ``w8_matmul_auto`` keeps the JAX package's dispatch: from ``W8_XLA_MIN_M``
-rows on, the weight is dequantized into a transient bf16 buffer and the
-product is a plain ``torch.matmul`` (the JAX package leaves that regime to
-XLA); the T5 encode (M = 128) always takes the kernel.
+rows on, the transient route (the JAX package leaves that regime to XLA);
+the T5 encode (M = 128) takes the kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 from . import _build
 
 NAME = "w8_matmul"
+DEQUANT_NAME = "w8_matmul_dequant"  # the transient dequant route on the card
 QBLOCK = 32
 W8_XLA_MIN_M = 1024
 BLOCK_M = 128            # tokens per CTA: the wgmma's N
@@ -92,8 +97,18 @@ def w8_matmul_plain(x, w_q, s_w, bias=None, qblock: int = QBLOCK, out_dtype=None
 def qblock_ok(qblock: int) -> bool:
     """The group sizes the kernel takes: a multiple of 16 that divides the
     64-row step or is a multiple of it (16, 32, 64, 128, ...), so that a
-    16-deep chunk lies in one group."""
+    16-deep chunk lies in one group.  On the card ``w8_matmul`` /
+    ``w4_matmul`` send any other qblock, before any launch, to the
+    transient dequant route."""
     return qblock >= 16 and qblock % 16 == 0 and (64 % qblock == 0 or qblock % 64 == 0)
+
+
+
+def count_dequant_route(x, name: str) -> None:
+    """One more ``name`` where the transient dequant route runs on the card
+    (not on the CPU, where the plain versions run)."""
+    if x.device.type != "cpu":
+        _build.LAUNCHES[name] += 1
 
 
 def _ceil(a: int, b: int) -> int:
@@ -246,20 +261,29 @@ def _launch(x, w_q, s_w, bias, qblock, plan=None):
     return y
 
 
+def w8_matmul_dequant(x, w_q, s_w, bias=None, qblock: int = QBLOCK, out_dtype=None):
+    """The transient dequant route: ``dequantize`` into a bf16 weight, then
+    one bf16 matmul with f32 accumulation, the bias added after."""
+    count_dequant_route(x, DEQUANT_NAME)
+    out_dtype = out_dtype or x.dtype
+    y = dot_bf16(x, dequantize(w_q, s_w, qblock), out_dtype)
+    return y if bias is None else y + bias.to(out_dtype)
+
+
 def w8_matmul(x, w_q, s_w, bias=None, qblock: int = QBLOCK, out_dtype=None):
     """x [M, K], w_q int8 [K, N], s_w f32 [K/qblock, N], bias [N] -> [M, N]."""
     if x.device.type == "cpu":
         return w8_matmul_plain(x, w_q, s_w, bias, qblock, out_dtype)
+    if not qblock_ok(qblock):
+        return w8_matmul_dequant(x, w_q, s_w, bias, qblock, out_dtype)
     if out_dtype not in (None, torch.bfloat16):
         raise TypeError(f"{NAME}: the kernel writes bfloat16, not {out_dtype}")
     return _launch(x, w_q, s_w, None if bias is None else bias.to(torch.bfloat16), qblock)
 
 
 def w8_matmul_auto(x, w_q, s_w, bias=None, qblock: int = QBLOCK, out_dtype=None):
-    """Fused kernel for small M (weight-bandwidth bound); transient bf16
-    dequant plus ``torch.matmul`` from ``W8_XLA_MIN_M`` rows on."""
+    """Fused kernel for small M (weight-bandwidth bound); the transient
+    dequant route from ``W8_XLA_MIN_M`` rows on."""
     if x.shape[0] >= W8_XLA_MIN_M:
-        out_dtype = out_dtype or x.dtype
-        y = dot_bf16(x, dequantize(w_q, s_w, qblock), out_dtype)
-        return y if bias is None else y + bias.to(out_dtype)
+        return w8_matmul_dequant(x, w_q, s_w, bias, qblock, out_dtype)
     return w8_matmul(x, w_q, s_w, bias, qblock, out_dtype)

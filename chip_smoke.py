@@ -2,7 +2,8 @@
 
 Builds the hand-written CUDA kernels from ``candle_video_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the main paths' shapes (all
-eight also as copies broken on purpose, which must fail), then
+eight also as copies broken on purpose, which must fail; K3 and K4 also at
+qblocks the kernel is not built for, on their dequant route), then
 drives on random weights, checking the outputs and the kernels' launch
 counts of every request:
 
@@ -25,6 +26,10 @@ counts of every request:
   VAE decode with the streamed tail in 6 chunks): a cold and a warm request;
 - the 13B W8A16 tier (int8 T5 → 13B DiT with int8 block linears): one
   request;
+- a full-size official-layout 2B checkpoint written by the port's writer
+  and run through the CLI (``--weights-path``) in bf16, ``--dit-int8`` and
+  ``--dit-int4`` against the in-memory pipeline on the same weights, and a
+  full-width T5 HF directory of 2 of the 24 blocks;
 - SVD image-to-video at its published request, 576x1024x14 with CFG (CLIP
   → noise-augmented VAE encode → 25 v-prediction Euler steps of the UNet at
   batch 28, the level-0 self-attention on K6 and levels 1-2 on K1 →
@@ -50,6 +55,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -930,12 +936,76 @@ def check_k4(card):
     return next(r for r in rows if r["label"] == "DiT attn2 k/v"), run
 
 
+# K3 / K4 at a qblock the kernel is not built for (``qblock_ok``):
+# the transient dequant route, a bf16 dequant and one cuBLAS bf16 matmul,
+# against the plain version.  cuBLAS may reduce split-K partials in bf16
+# (torch's default for bf16 matmuls), so the limit is a bf16 rounding's, not
+# the kernel's 2e-4.
+NARROW_QBLOCK_CASES = [("K3", 128, 4080, 4096, 48), ("K3", 128, 4096, 4096, 8),
+                       ("K4", 128, 4032, 4096, 48)]
+NARROW_QBLOCK_TOL = dict(rel=2e-3)
+
+
+def check_narrow_qblocks(card):
+    """Each ``NARROW_QBLOCK_CASES`` call on the card goes to the dequant route
+    (one count of ``w8_matmul_dequant`` / ``w4_matmul_dequant``, no kernel
+    launch) and agrees with the plain version."""
+    from candle_video_tpu_torch.ops.kernels import _build
+    from candle_video_tpu_torch.ops.kernels import int4_weight_matmul as K4
+    from candle_video_tpu_torch.ops.kernels import int8_weight_matmul as K3
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for tag, m, kk, n, qb in NARROW_QBLOCK_CASES:
+        x = torch.randn(m, kk, generator=g, device=dev).bfloat16()
+        s = torch.rand(kk // qb, n, generator=g, device=dev) * 1e-3 + 1e-4
+        if tag == "K3":
+            w = torch.randint(-127, 128, (kk, n), generator=g, device=dev, dtype=torch.int8)
+            args, mod = (x, w, s), K3
+
+            def call(*a):
+                return K3.w8_matmul(*a, qblock=qb)
+
+            def plain(*a):
+                return K3.w8_matmul_plain(*a, qblock=qb)
+        else:
+            w = torch.randint(0, 256, (kk // 2, n), generator=g, device=dev, dtype=torch.uint8)
+            s = s.bfloat16()
+            args, mod = (x, w, s, (-7.5 * s.float()).bfloat16()), K4
+
+            def call(*a):
+                return K4.w4_matmul(*a, qblock=qb)
+
+            def plain(*a):
+                return K4.w4_matmul_plain(*a, qblock=qb)
+        _build.reset_launches()
+        got = call(*args)
+        launches = dict(_build.LAUNCHES)
+        err = errors(got, plain(*args))
+        if launches != {mod.DEQUANT_NAME: 1}:
+            raise AssertionError(f"{tag} qb {qb}: launches {launches}, want one "
+                                 f"{mod.DEQUANT_NAME} and no kernel")
+        if not err["rel"] <= NARROW_QBLOCK_TOL["rel"]:
+            raise AssertionError(f"{tag} qb {qb} ({mod.DEQUANT_NAME}) disagrees with its plain "
+                                 f"version: {err}")
+        ms = cuda_ms(lambda: call(*args), iters=20)
+        row = dict(tag=tag, m=m, k=kk, n=n, qblock=qb, route=mod.DEQUANT_NAME, ms=ms, **err)
+        log(f"[{tag} qb {qb}] M={m} K={kk} N={n}: {mod.DEQUANT_NAME} (no kernel launch) "
+            f"rel={err['rel']:.3e} max_abs={err['max_abs']:.3e} (limit rel "
+            f"{NARROW_QBLOCK_TOL['rel']}) {ms:.4f} ms | {card}")
+        rows.append(row)
+    RESULTS["narrow_qblocks"] = rows
+
+
 def check_k3_k4(card):
     """K3 and K4 in every case, then their broken copies on the same
-    inputs; returns the rows of the ``kernels`` line."""
+    inputs, then the qblocks the kernel is not built for; returns the rows
+    of the ``kernels`` line."""
     k3, run3 = check_k3(card)
     k4, run4 = check_k4(card)
     check_weight_only_broken(card, run3, run4)
+    check_narrow_qblocks(card)
     return k3, k4
 
 
@@ -1378,6 +1448,9 @@ def build_pipeline(tag, card, version, **kw):
 
     t0 = time.perf_counter()
     pipe = build_random_pipeline(version, "cuda", torch.bfloat16, seed=0, **kw)
+    # every request encodes its prompt: the stage times and the launch
+    # counts hold the T5, also where a phase repeats a prompt
+    pipe.embedding_cache_size = 0
     torch.cuda.synchronize()
     gib = dict(dit=resident_gib(pipe.transformer), t5=resident_gib(pipe.t5),
                vae=resident_gib(pipe.vae))
@@ -1954,8 +2027,297 @@ def run_svd(card, steps: int = 25):
     return runs[-1]["launches"]
 
 
+CKPT_SEED = 77
+CKPT_PROMPT = "A paper boat drifting down a rain-filled gutter"
+# the VAE encoder's tensors written beside the decoder, at the shapes of the
+# full 0.9.8 VAE (latent 128, patch 4, widths 128 .. 2048): conv_in, the
+# first down block's four resnets and conv_out; the loader skips them
+CKPT_ENCODER = dict(
+    [("encoder.conv_in.conv.weight", (128, 48, 3, 3, 3)), ("encoder.conv_in.conv.bias", (128,)),
+     ("encoder.conv_out.conv.weight", (129, 2048, 3, 3, 3)),
+     ("encoder.conv_out.conv.bias", (129,))]
+    + [(f"encoder.down_blocks.0.resnets.{j}.{c}.conv.{leaf}",
+        (128, 128, 3, 3, 3) if leaf == "weight" else (128,))
+       for j in range(4) for c in ("conv1", "conv2") for leaf in ("weight", "bias")])
+
+
+def quantized_payloads(model) -> dict:
+    """Every buffer of the DiT's quantized block linears, on the host."""
+    from candle_video_tpu_torch.models.ltx_video import transformer as TF
+
+    out = {}
+    for i, blk in enumerate(model.blocks):
+        for group, name in TF.QUANTIZED_LINEARS:
+            for leaf, t in getattr(getattr(blk, group), name).named_buffers():
+                out[f"blocks.{i}.{group}.{name}.{leaf}"] = t.cpu()
+    return out
+
+
+def reference_request(pipe, kw):
+    """One in-memory request: (final latents, uint8 frames), on the host."""
+    from candle_video_tpu_torch.models.ltx_video.pipeline import generate
+    from candle_video_tpu_torch.utils import video_io
+
+    final = {}
+    video = generate(pipe, step_callback=lambda i, n, lat: final.update(lat=lat), **kw)
+    torch.cuda.synchronize()
+    return final["lat"].float().cpu(), video_io.to_uint8_frames(video.cpu().numpy())
+
+
+def frames_diff(a, b) -> int:
+    return int(abs(a.astype("int16") - b.astype("int16")).max())
+
+
+def write_official_2b(pipe, path) -> dict:
+    """The pipeline's DiT and VAE decoder (and ``CKPT_ENCODER``) as one
+    official-layout file, written by the port's writer; returns its size."""
+    from candle_video_tpu_torch.models.ltx_video import loader as L
+    from candle_video_tpu_torch.models.ltx_video import weight_format as W
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tensors = {W.officialize_transformer_key(k): v
+               for k, v in L.transformer_state_dict(pipe.transformer).items()}
+    tensors.update({W.officialize_vae_key(k): v
+                    for k, v in L.vae_decoder_state_dict(pipe.vae).items()})
+    tensors.update({W.officialize_vae_key(k): (torch.randn(shape, generator=g, device="cuda")
+                                               * 0.02).bfloat16()
+                    for k, shape in CKPT_ENCODER.items()})
+    t0 = time.perf_counter()
+    L.save_safetensors(tensors, path)
+    n_bytes = os.path.getsize(path)
+    return dict(tensors=len(tensors), gib=n_bytes / 2**30, write_s=time.perf_counter() - t0,
+                dtypes=sorted({str(t.dtype) for t in tensors.values()}))
+
+
+def cli_checkpoint_run(card, tier, path, emb_path, out_dir, ref):
+    """``cli.main`` on the official file at 512x768x97 with the embeddings
+    file: the load timed (seconds, the file's GiB/s, the device peak of the
+    DiT load and of the whole load), the launches of the request counted,
+    the final latents and the frames against the in-memory ``ref``, the
+    quantized payloads against the in-memory quantizer's."""
+    import numpy as np
+
+    from candle_video_tpu_torch import cli
+    from candle_video_tpu_torch.models.ltx_video import loader as L
+    from candle_video_tpu_torch.ops.kernels import _build
+
+    flag = {"bf16": [], "w8": ["--dit-int8"], "w4": ["--dit-int4"]}[tier]
+    quant = {"bf16": None, "w8": "w8", "w4": "w4"}[tier]
+    seen = {}
+    load_pipeline, dit_load = cli.load_pipeline, cli._DIT_LOADERS[quant]
+
+    def peak_since(base):
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def timed_dit(*a, **k):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = dit_load(*a, **k)
+        seen.update(dit_peak_gib=peak_since(base), dit_load_s=time.perf_counter() - t0)
+        return model
+
+    def timed_load(args, device, dtype):
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pipe = load_pipeline(args, device, dtype)
+        torch.cuda.synchronize()
+        seen.update(pipe=pipe, load_s=time.perf_counter() - t0, base_gib=base / 2**30,
+                    resident_gib=(torch.cuda.memory_allocated() - base) / 2**30)
+        return pipe
+
+    lat_path = os.path.join(out_dir, f"final_{tier}.safetensors")
+    argv = ["--weights-path", path, "--embeddings-file", emb_path, "--vae-stream-chunks", "2",
+            "--seed", str(CKPT_SEED), "--height", "512", "--width", "768", "--num-frames",
+            "97", "--output-dir", os.path.join(out_dir, tier), "--save-final-latents",
+            lat_path, *flag]
+    cli.load_pipeline, cli._DIT_LOADERS[quant] = timed_load, timed_dit
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        cli.load_pipeline, cli._DIT_LOADERS[quant] = load_pipeline, dit_load
+    if rc != 0:
+        raise AssertionError(f"checkpoint cli {tier} returned {rc}")
+    pipe = seen.pop("pipe")
+    lat = L.load_safetensors(lat_path)["latents"].clone()
+    frames = np.load(os.path.join(out_dir, tier, "video_uint8.npy"))
+    ref_lat, ref_frames, spread, frame_spread, payloads = ref
+    lat_diff = (lat - ref_lat).abs().max().item()
+    frame_diff = frames_diff(frames, ref_frames)
+    same_payloads = None
+    if payloads is not None:
+        got = quantized_payloads(pipe.transformer)
+        same_payloads = sorted(got) == sorted(payloads) and all(
+            torch.equal(got[k], payloads[k]) for k in payloads)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib = os.path.getsize(path) / 2**30
+    row = dict(tier=tier, argv=argv, wall_s=wall, launches=launches, latent_max_abs=lat_diff,
+               reference_spread=spread, frames_max_diff=frame_diff,
+               reference_frame_spread=frame_spread, payloads_bit_equal=same_payloads,
+               file_gib_per_s=gib / seen["load_s"], **seen)
+    log(f"[checkpoint] cli {tier}: load {seen['load_s']:.2f} s ({row['file_gib_per_s']:.2f} "
+        f"GiB/s of the {gib:.2f} GiB file, in the page cache), DiT load "
+        f"{seen['dit_load_s']:.2f} s at a device peak of {seen['dit_peak_gib']:.3f} GiB, "
+        f"resident {seen['resident_gib']:.2f} GiB; request wall {wall:.2f} s with the load; "
+        f"latents max |diff| {lat_diff:.3e} against the in-memory request (spread of two "
+        f"in-memory runs {spread:.3e}), frames max diff {frame_diff} (spread {frame_spread}), "
+        f"payloads bit-equal: {same_payloads}; launches {launches} | {card}")
+    if lat.shape != ref_lat.shape or not torch.isfinite(lat).all():
+        raise AssertionError(f"checkpoint cli {tier}: latents {tuple(lat.shape)}")
+    if lat_diff > spread or frame_diff > frame_spread:
+        raise AssertionError(f"checkpoint cli {tier}: latents differ by {lat_diff}, frames by "
+                             f"{frame_diff}, beyond the in-memory spread {spread} / "
+                             f"{frame_spread}")
+    if payloads is not None and not same_payloads:
+        raise AssertionError(f"checkpoint cli {tier}: the streamed payloads are not the "
+                             "in-memory quantizer's")
+    return row
+
+
+def check_t5_dir(card, root, layers: int = 2):
+    """A full-width HuggingFace T5-XXL directory of ``layers`` of the 24
+    blocks (d_model 4096, d_ff 10240, vocab 32128; the depth cut is the only
+    one), written by the port's writer, through ``t5_from_hf_state_dict``
+    against the encoder built in memory from the same tensors."""
+    from candle_video_tpu_torch.models.ltx_video import loader as L
+    from candle_video_tpu_torch.models.ltx_video import t5 as T5
+    from candle_video_tpu_torch.models.ltx_video.configs import T5Config
+
+    cfg = T5Config(num_layers=layers)
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*shape, scale=0.02, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+    d, ff = cfg.d_model, cfg.d_ff
+    shapes = {"q": (d, d), "k": (d, d), "v": (d, d), "o": (d, d), "wi_0": (ff, d),
+              "wi_1": (ff, d), "wo": (d, ff)}
+    sd = {"shared.weight": rnd(cfg.vocab_size, d, scale=1.0),
+          "encoder.final_layer_norm.weight": 1 + rnd(d, scale=0.1),
+          "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+              rnd(cfg.relative_attention_num_buckets, cfg.num_heads, scale=1.0,
+                  dtype=torch.float32)}
+    blocks = []
+    for i in range(layers):
+        lins = {}
+        for name, shape in shapes.items():
+            sd[f"encoder.block.{i}.{T5.HF_LINEARS[name]}.weight"] = w = rnd(*shape)
+            lins[name] = T5.dense_linear(w.t())
+        sd[f"encoder.block.{i}.layer.0.layer_norm.weight"] = n0 = 1 + rnd(d, scale=0.1)
+        sd[f"encoder.block.{i}.layer.1.layer_norm.weight"] = n1 = 1 + rnd(d, scale=0.1)
+        blocks.append(T5.T5Block(cfg, lins, n0, n1))
+    ref = T5.T5Encoder(cfg, sd["shared.weight"], blocks, sd[
+        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"],
+        sd["encoder.final_layer_norm.weight"]).eval()
+    directory = os.path.join(root, "text_encoder")
+    os.makedirs(directory, exist_ok=True)
+    L.save_safetensors(sd, os.path.join(directory, "model.safetensors"))
+    gib = os.path.getsize(os.path.join(directory, "model.safetensors")) / 2**30
+    del sd
+    t0 = time.perf_counter()
+    enc = T5.t5_from_hf_state_dict(L.load_sharded(directory), cfg, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ids = torch.randint(0, cfg.vocab_size, (1, 128), generator=g, device="cuda")
+    mask = torch.ones(1, 128, device="cuda")
+    mask[:, 40:] = 0
+    got, want = enc(ids, mask), ref(ids, mask)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs().max().item()
+    log(f"[checkpoint] T5 HF directory, full width, {layers} of 24 blocks (depth cut), "
+        f"{gib:.2f} GiB: loaded in {load_s:.2f} s; 128-token encode max |diff| {diff:.3e} "
+        f"against the in-memory encoder of the same tensors | {card}")
+    if got.shape != (1, 128, d) or not torch.equal(got, want):
+        raise AssertionError(f"T5 from the HF directory differs from the in-memory encoder: "
+                             f"max |diff| {diff}")
+    shutil.rmtree(directory)
+    RESULTS["checkpoint_t5_dir"] = dict(layers=layers, gib=gib, load_s=load_s, max_abs=diff)
+
+
+def run_checkpoint(card):
+    """A full-size official-layout 2B file (the DiT, VAE decoder and latent
+    statistics of ``build_random_pipeline("0.9.8-2b-distilled", seed=0)`` in
+    bf16, and some encoder tensors) written by the port's writer, then run
+    through ``cli.main`` three ways, bf16, ``--dit-int8`` and ``--dit-int4``,
+    each at 512x768x97 with the prompt embeddings of the in-memory int8 T5
+    from an embeddings file and the streamed tail in 2 chunks.  Each run's
+    latents and frames are held to the in-memory pipeline's request on the
+    same weights (quantized by ``quantize_transformer_w8`` / ``_w4`` for the
+    tiers): equal, or within the spread of two in-memory runs; its payloads
+    to the in-memory quantizer's, bit for bit; its launches to K1 196 and,
+    on the tiers, K3 or K4 392 (the DiT's cross-attention k/v at M = 128; no
+    T5 runs); the DiT load's device peak to below the bf16 block tree.
+    Then a full-width T5 HF directory.  The files are deleted at the end."""
+    from candle_video_tpu_torch.models.ltx_video import loader as L
+    from candle_video_tpu_torch.models.ltx_video import transformer as TF
+
+    root = os.path.join(OUT_DIR, "checkpoint")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "ltxv-2b-0.9.8-distilled-random.safetensors")
+    emb_path = os.path.join(root, "embeddings.safetensors")
+    pipe, gib = build_pipeline("checkpoint", card, "0.9.8-2b-distilled")
+    emb, mask = pipe.encode_prompt([CKPT_PROMPT], 128)
+    L.save_safetensors({"prompt_embeds": emb, "prompt_attention_mask": mask}, emb_path)
+    pipe.t5 = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    kw = dict(prompt_embeds=emb, prompt_attention_mask=mask, height=512, width=768,
+              num_frames=97, seed=CKPT_SEED, vae_tail_stream_chunks=2)
+    block_tree_gib = sum(
+        t.numel() * t.element_size() for parent, name in TF.quantized_slots(pipe.transformer)
+        for t in getattr(parent, name).parameters()) / 2**30
+    refs = {}
+    dense = pipe.transformer
+    for tier, quantize in (("bf16", None), ("w8", TF.quantize_transformer_w8),
+                           ("w4", TF.quantize_transformer_w4)):
+        if quantize is not None:
+            pipe.transformer = quantize(copy.deepcopy(dense))
+        (lat_a, fr_a), (lat_b, fr_b) = (reference_request(pipe, kw) for _ in range(2))
+        payloads = None if quantize is None else quantized_payloads(pipe.transformer)
+        refs[tier] = (lat_a, fr_a, (lat_a - lat_b).abs().max().item(), frames_diff(fr_a, fr_b),
+                      payloads)
+        log(f"[checkpoint] in-memory {tier} request x2: latents spread "
+            f"{refs[tier][2]:.3e}, frames spread {refs[tier][3]} | {card}")
+        pipe.transformer = dense
+    info = write_official_2b(pipe, path)
+    log(f"[checkpoint] wrote the official-layout 2B file: {info['tensors']} tensors "
+        f"({len(CKPT_ENCODER)} of the encoder), {info['gib']:.2f} GiB, {info['dtypes']}, in "
+        f"{info['write_s']:.2f} s; the bf16 block tree is {block_tree_gib:.2f} GiB | {card}")
+    del dense, emb, mask, pipe  # one pipeline resident at a time
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {}
+    want = {"bf16": {"flash_attention_packed": 196, "w8_matmul": 0, "w4_matmul": 0},
+            "w8": {"flash_attention_packed": 196, "w8_matmul": 392, "w4_matmul": 0},
+            "w4": {"flash_attention_packed": 196, "w4_matmul": 392, "w8_matmul": 0}}
+    for tier in ("bf16", "w8", "w4"):
+        row = cli_checkpoint_run(card, tier, path, emb_path, root, refs[tier])
+        if any(row["launches"].get(k, 0) != n for k, n in want[tier].items()):
+            raise AssertionError(f"checkpoint cli {tier}: launches {row['launches']}, "
+                                 f"want {want[tier]}")
+        if tier != "bf16" and not row["dit_peak_gib"] < block_tree_gib:
+            raise AssertionError(f"checkpoint cli {tier}: the streaming DiT load peaked at "
+                                 f"{row['dit_peak_gib']:.3f} GiB, not below the "
+                                 f"{block_tree_gib:.3f} GiB bf16 block tree")
+        rows[tier] = {k: v for k, v in row.items() if k != "argv"}
+    os.remove(path)
+    check_t5_dir(card, root)
+    shutil.rmtree(root)
+    RESULTS["checkpoint"] = dict(file=info, block_tree_gib=block_tree_gib, runs=rows)
+    return rows
+
+
 def run_cli(card):
     from candle_video_tpu_torch import cli
+    from candle_video_tpu_torch.models.ltx_video import loader as L
 
     for name, extra in (("cli_smoke", []),
                         ("cli_smoke_13b_int4", ["--version", "0.9.8-13b-distilled",
@@ -1966,7 +2328,7 @@ def run_cli(card):
                        "--output-type", "latent", "--output-dir", out])
         if rc != 0:
             raise AssertionError(f"cli {extra} returned {rc}")
-        lat = torch.load(os.path.join(out, "latents.pt"))
+        lat = L.load_safetensors(os.path.join(out, "latents.safetensors"))["latents"]
         if tuple(lat.shape) != (1, 4 * 8 * 12, 128) or not torch.isfinite(lat).all():
             raise AssertionError(f"cli {extra} latents {tuple(lat.shape)}")
         log(f"[cli] {' '.join(extra) or '2B'} 256x384x25 latent run in "
@@ -2011,6 +2373,7 @@ def main() -> int:
     launches_long = run_long(card)
     launches_13b = run_13b_w4(card)
     run_13b_w8(card)
+    run_checkpoint(card)
     run_cli(card)
     k6 = check_k6(card)
     check_svd_slice(card)

@@ -146,10 +146,11 @@ def test_wrapper_checks_reject_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("qb", [8, 48, 96])
 def test_qblocks_the_kernel_refuses_still_run_on_the_cpu(rng, qb):
-    """The one divergence from the JAX ``w4_matmul``: the kernel takes a
-    qblock whose 16-deep chunks lie in one group (16, 32, 64, 128, ...), so
-    the wrapper refuses 8, 48 or 96 before a launch; the plain version, as
-    the JAX kernel, takes them."""
+    """The kernel takes a qblock whose 16-deep chunks lie in one group (16,
+    32, 64, 128, ...), so its checks refuse 8, 48 or 96; the wrapper sends
+    those to the transient route in the kernel's f32 order on the card
+    (``qblock_ok``), and on the CPU the plain version, as the JAX
+    kernel, takes them."""
     k, n = 8 * qb, 16
     w = rng.normal(size=(k, n)).astype(np.float32) * 0.05
     packed, s, mn = K4.quantize_int4_blockwise(w, qb)
@@ -310,3 +311,57 @@ def test_k4_launches_once_on_its_plan_with_no_workspace(monkeypatch, m, k, n, qb
     assert len(call) == len(_build._SIGNATURES["cvt_w4_matmul"])
     assert call[6:] == (m, k, n, p["n_pad"], qb, int(scale_dtype == torch.bfloat16), p["bn"],
                         p["stages"], p["split"], p["smem_bytes"], 7)
+
+
+ROUTES = {8: "dequant", 16: "kernel", 32: "kernel", 48: "dequant", 64: "kernel",
+          96: "dequant", 128: "kernel"}
+
+
+@pytest.mark.parametrize("qb", sorted(ROUTES))
+def test_k4_on_the_card_routes_by_qblock_before_any_launch(monkeypatch, qb):
+    """As K3: a qblock the kernel is not built for takes the transient route,
+    counted as ``w4_matmul_dequant``, with no kernel launch."""
+    m, k, n = 128, 8 * 96, 32
+    x = torch.empty(m, k, dtype=torch.bfloat16, device="meta")
+    w_p = torch.empty(k // 2, n, dtype=torch.uint8, device="meta")
+    s = torch.empty(k // qb, n, dtype=torch.bfloat16, device="meta")
+    lib, _ = stub_card(monkeypatch, K4)
+    for call in (K4.w4_matmul, K4.w4_matmul_auto):
+        y = call(x, w_p, s, s, qblock=qb)
+        assert y.shape == (m, n) and y.device.type == "meta"
+    kernel = ROUTES[qb] == "kernel"
+    assert K4.qblock_ok(qb) == kernel
+    assert len(lib.calls) == _build.LAUNCHES[K4.NAME] == 2 * kernel
+    assert _build.LAUNCHES[K4.DEQUANT_NAME] == 2 * (not kernel)
+
+
+@pytest.mark.parametrize("qb", [8, 48, 96])
+def test_k4_dequant_route_matches_pallas_interpret(rng, qb):
+    """The route the card takes for such a qblock dequantizes in the
+    kernel's f32 order: JAX's ``w4_matmul``."""
+    k, n = 8 * qb, 24
+    packed, s, mn = K4.quantize_int4_blockwise(
+        rng.normal(size=(k, n)).astype(np.float32) * 0.05, qb, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(9, k)).astype(np.float32))
+    got = K4.w4_matmul_xla_equivalent(x, packed, s, mn, qblock=qb)
+    want = J4.w4_matmul(jnp.asarray(x.numpy()), jnp.asarray(packed.numpy()),
+                        jnp.asarray(s.float().numpy()).astype(jnp.bfloat16),
+                        jnp.asarray(mn.float().numpy()).astype(jnp.bfloat16),
+                        out_dtype=jnp.float32, interpret=True, qblock=qb)
+    assert _rel(got.numpy(), want) <= RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qb", [8, 48])
+def test_k4_narrow_qblock_on_the_card(rng, qb):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the route runs on CUDA tensors only")
+    k, n = 4096 // (2 * qb) * 2 * qb, 4096
+    packed, s, mn = (t.cuda() for t in K4.quantize_int4_blockwise(
+        rng.normal(size=(k, n)).astype(np.float32) * 0.05, qb, torch.bfloat16))
+    x = torch.from_numpy(rng.normal(size=(128, k)).astype(np.float32)).cuda().bfloat16()
+    _build.reset_launches()
+    got = K4.w4_matmul(x, packed, s, mn, qblock=qb)
+    want = K4.w4_matmul_plain(x, packed, s, mn, qblock=qb)
+    assert _rel(got.float().cpu().numpy(), want.float().cpu().numpy()) <= 2e-3
+    assert _build.LAUNCHES[K4.DEQUANT_NAME] == 1 and _build.LAUNCHES[K4.NAME] == 0

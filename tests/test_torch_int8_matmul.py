@@ -51,10 +51,11 @@ def test_k3_matches_pallas_interpret(rng, m, k, n, qblock, with_bias):
 
 @pytest.mark.parametrize("qb", [8, 48, 96])
 def test_qblocks_the_kernel_refuses_still_run_on_the_cpu(rng, qb):
-    """The one divergence from the JAX ``w8_matmul``: the kernel takes a
-    qblock whose 16-deep chunks lie in one group (16, 32, 64, 128, ...), so
-    the wrapper refuses 8, 48 or 96 before a launch; the plain version, as
-    the JAX kernel, takes them."""
+    """The kernel takes a qblock whose 16-deep chunks lie in one group (16,
+    32, 64, 128, ...), so its checks refuse 8, 48 or 96; the wrapper sends
+    those to the transient dequant route on the card
+    (``qblock_ok``), and on the CPU the plain version, as the JAX
+    kernel, takes them."""
     k, n = 4 * qb, 24
     x = rng.normal(size=(4, k)).astype(np.float32)
     w_q, s = quantize_int8_blockwise(rng.normal(size=(k, n)) * 0.05, qb)
@@ -67,6 +68,64 @@ def test_qblocks_the_kernel_refuses_still_run_on_the_cpu(rng, qb):
     want = jax_w8_matmul(jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(s),
                          out_dtype=jnp.float32, interpret=True, qblock=qb)
     assert _rel(got.numpy(), want) <= RTOL
+
+
+ROUTES = {8: "dequant", 16: "kernel", 32: "kernel", 48: "dequant", 64: "kernel",
+          96: "dequant", 128: "kernel"}
+
+
+@pytest.mark.parametrize("qb", sorted(ROUTES))
+def test_k3_on_the_card_routes_by_qblock_before_any_launch(monkeypatch, qb):
+    """A qblock the kernel is not built for goes to the transient dequant
+    route, counted as ``w8_matmul_dequant``, with no kernel launch; the
+    others launch the kernel once.  ``_auto`` below ``W8_XLA_MIN_M`` rows
+    routes the same way, and from there on takes the dequant route."""
+    m, k, n = 128, 4 * 96, 32
+    x = torch.empty(m, k, dtype=torch.bfloat16, device="meta")
+    w_q = torch.empty(k, n, dtype=torch.int8, device="meta")
+    s = torch.empty(k // qb, n, device="meta")
+    lib, _ = stub_card(monkeypatch, K3)
+    for call in (K3.w8_matmul, K3.w8_matmul_auto):
+        y = call(x, w_q, s, qblock=qb)
+        assert y.shape == (m, n) and y.device.type == "meta"
+    kernel = ROUTES[qb] == "kernel"
+    assert K3.qblock_ok(qb) == kernel
+    assert len(lib.calls) == _build.LAUNCHES[K3.NAME] == 2 * kernel
+    assert _build.LAUNCHES[K3.DEQUANT_NAME] == 2 * (not kernel)
+    K3.w8_matmul_auto(torch.empty(K3.W8_XLA_MIN_M, k, dtype=torch.bfloat16, device="meta"),
+                      w_q, s, qblock=qb)
+    assert _build.LAUNCHES[K3.DEQUANT_NAME] == 2 * (not kernel) + 1
+    assert len(lib.calls) == 2 * kernel
+
+
+@pytest.mark.parametrize("qb", [8, 48, 96])
+def test_k3_dequant_route_matches_pallas_interpret(rng, qb):
+    """What the card runs for such a qblock, run here: JAX's function."""
+    k, n = 4 * qb, 40
+    x = rng.normal(size=(77, k)).astype(np.float32)
+    w_q, s = quantize_int8_blockwise(rng.normal(size=(k, n)) * 0.05, qb)
+    bias = rng.normal(size=(n,)).astype(np.float32)
+    got = K3.w8_matmul_dequant(torch.from_numpy(x), torch.from_numpy(w_q), torch.from_numpy(s),
+                               torch.from_numpy(bias), qblock=qb)
+    want = jax_w8_matmul(jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(s), jnp.asarray(bias),
+                         out_dtype=jnp.float32, interpret=True, qblock=qb)
+    assert _rel(got.numpy(), want) <= RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qb", [8, 48])
+def test_k3_narrow_qblock_on_the_card(rng, qb):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the route runs on CUDA tensors only")
+    k, n = 4096 // qb * qb, 4096
+    x = torch.from_numpy(rng.normal(size=(128, k)).astype(np.float32)).cuda().bfloat16()
+    w_q, s = (torch.from_numpy(a).cuda()
+              for a in quantize_int8_blockwise(rng.normal(size=(k, n)) * 0.05, qb))
+    _build.reset_launches()
+    got = K3.w8_matmul(x, w_q, s, qblock=qb)
+    want = K3.w8_matmul_plain(x, w_q, s, qblock=qb)
+    assert _rel(got.float().cpu().numpy(), want.float().cpu().numpy()) <= 2e-3
+    assert _build.LAUNCHES[K3.DEQUANT_NAME] == 1 and _build.LAUNCHES[K3.NAME] == 0
 
 
 def test_k3_auto_takes_transient_dequant_at_large_m(rng):

@@ -414,3 +414,244 @@ def test_port_generate_never_imports_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "NO_JAX_OK" in res.stdout
+
+
+# ---------------------------------------------------------------------------
+# the cooperative interrupt and the prompt-embedding cache
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_interrupt_before_step_k_equals_k_steps_of_jax(jax_trees, k):
+    """Set from the step callback after step k, ``interrupt`` stops both
+    loops before step k + 1: the latents are those of k steps of JAX's
+    step-wise loop, and the callback saw k steps."""
+    jpipe, ppipe = _pipelines(jax_trees, DISTILLED)
+    seen = {"jax": [], "port": []}
+
+    def stopper(pipe, side):
+        def cb(i, n, lat):
+            seen[side].append(i)
+            if i == k - 1:
+                pipe.interrupt = True
+        return cb
+
+    kw = dict(prompt="a cat walking on grass", height=64, width=96, num_frames=9, seed=5,
+              max_sequence_length=16, output_type="latent")
+    lat_j = np.asarray(JP.generate(jpipe, step_callback=stopper(jpipe, "jax"), **kw))
+    lat_p = PP.generate(ppipe, step_callback=stopper(ppipe, "port"), **kw).numpy()
+    assert seen["port"] == seen["jax"] == list(range(k))
+    assert float(np.mean((lat_p - lat_j) ** 2)) < 1e-3
+    full = PP.generate(_pipelines(jax_trees, DISTILLED)[1], **kw).numpy()
+    assert float(np.mean((full - lat_p) ** 2)) > 1e-6  # the stop changed the result
+
+
+def test_encode_prompt_caches_sixteen_keys_first_in_first_out(jax_trees):
+    _, ppipe = _pipelines(jax_trees, DISTILLED)
+    calls = []
+    encode = ppipe.tokenizer.encode_batch
+
+    class Counting:
+        def encode_batch(self, prompts, max_length=None):
+            calls.append(tuple(prompts))
+            return encode(prompts, max_length)
+
+    ppipe.tokenizer = Counting()
+    first = ppipe.encode_prompt(["a cat"], 16)
+    assert ppipe.encode_prompt(["a cat"], 16) is first and len(calls) == 1
+    ppipe.encode_prompt(["a cat"], 8)  # another length is another key
+    assert len(calls) == 2
+    for i in range(14):
+        ppipe.encode_prompt([f"prompt {i}"], 16)
+    assert len(ppipe._embed_cache) == ppipe.embedding_cache_size == 16
+    assert ppipe.encode_prompt(["a cat"], 16) is first  # still cached: 16 keys
+    ppipe.encode_prompt(["the seventeenth"], 16)  # evicts the oldest key
+    n = len(calls)
+    again = ppipe.encode_prompt(["a cat"], 16)
+    assert len(calls) == n + 1 and again is not first
+    assert torch.equal(again[0], first[0])
+    ppipe.embedding_cache_size = 0  # off: every call encodes
+    ppipe._embed_cache.clear()
+    ppipe.encode_prompt(["a cat"], 16)
+    ppipe.encode_prompt(["a cat"], 16)
+    assert len(calls) == n + 3 and not ppipe._embed_cache
+
+
+# ---------------------------------------------------------------------------
+# the CLI at a tiny config
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def tiny_cli(monkeypatch, tmp_path):
+    """The CLI with the tiny configs patched in, an official single file and
+    a diffusers directory of the same random weights, and a HuggingFace T5
+    directory."""
+    from candle_video_tpu_torch.models.ltx_video import loader as PL
+    from candle_video_tpu_torch.models.ltx_video import t5 as PT5
+    from candle_video_tpu_torch.models.ltx_video import transformer as PTF
+    from candle_video_tpu_torch.models.ltx_video import vae as PV
+    from candle_video_tpu_torch.models.ltx_video import weight_format as PW
+
+    cfg = _configs(PC, DISTILLED)
+    t5cfg = PC.T5Config(**T5_CFG)
+    monkeypatch.setattr(PCLI, "get_config_by_version", lambda version: cfg)
+    monkeypatch.setattr(PCLI, "t5_xxl", lambda: t5cfg)
+    gen = torch.Generator().manual_seed(0)
+    dit = PTF.init_random(cfg.transformer, "cpu", torch.float32, gen)
+    dec = PV.init_random(cfg.vae, "cpu", torch.float32, gen)
+    dit_sd, vae_sd = PL.transformer_state_dict(dit), PL.vae_decoder_state_dict(dec)
+    official = tmp_path / "ltxv-tiny.safetensors"
+    PL.save_safetensors({**{PW.officialize_transformer_key(k): v for k, v in dit_sd.items()},
+                         **{PW.officialize_vae_key(k): v for k, v in vae_sd.items()}},
+                        str(official))
+    diffusers = tmp_path / "diffusers"
+    for sub, sd in (("transformer", dit_sd), ("vae", vae_sd)):
+        (diffusers / sub).mkdir(parents=True)
+        PL.save_safetensors(sd, str(diffusers / sub / "diffusion_pytorch_model.safetensors"))
+    t5 = PCV.t5_from_jax(jax.tree.map(np.asarray, _t5_int8_tree(np.random.default_rng(1))),
+                         t5cfg)
+    hf = {"shared.weight": t5.embedding, "encoder.final_layer_norm.weight": t5.final_norm,
+          "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight": t5.rel_bias}
+    for i, blk in enumerate(t5.blocks):
+        for name, hf_name in PT5.HF_LINEARS.items():
+            lin = getattr(blk, name)
+            w = lin.w_q.float() * lin.s.repeat_interleave(lin.w_q.shape[0] // lin.s.shape[0], 0)
+            hf[f"encoder.block.{i}.{hf_name}.weight"] = w.t().contiguous()
+        hf[f"encoder.block.{i}.layer.0.layer_norm.weight"] = blk.attn_norm
+        hf[f"encoder.block.{i}.layer.1.layer_norm.weight"] = blk.ffn_norm
+    (tmp_path / "text_encoder").mkdir()
+    PL.save_safetensors(hf, str(tmp_path / "text_encoder" / "model.safetensors"))
+    base = ["--device", "cpu", "--dtype", "float32", "--height", "64", "--width", "64",
+            "--num-frames", "5", "--max-sequence-length", "16", "--seed", "3"]
+    return dict(cfg=cfg, dit=dit, dec=dec, official=str(official), diffusers=str(diffusers),
+                t5_dir=str(tmp_path / "text_encoder"), out=tmp_path / "out", base=base)
+
+
+def _cli_latents(tiny, *extra):
+    from candle_video_tpu_torch.models.ltx_video import loader as PL
+
+    out = tiny["out"] / str(len(list(tiny["out"].parent.glob("out*"))))
+    assert PCLI.main([*tiny["base"], "--output-dir", str(out), *extra]) == 0
+    return PL.load_safetensors(str(out / "latents.safetensors"))["latents"]
+
+
+def _random_embeds(cfg):
+    """The CLI's embeddings without a T5 (the JAX CLI's smoke mode)."""
+    shape = (1, 16, cfg.transformer.caption_channels)
+    emb = torch.from_numpy(np.random.default_rng(0).normal(size=shape) * 0.02).float()
+    return dict(prompt_embeds=emb, prompt_attention_mask=torch.ones(shape[:2]))
+
+
+@pytest.mark.parametrize("tier", [None, "w8", "w4"])
+def test_cli_runs_an_official_file_as_the_in_memory_pipeline(tiny_cli, tier):
+    """``--weights-path`` on the official file (and on the diffusers
+    directory for the dense tier) gives the latents of ``generate`` on the
+    in-memory modules, quantized as the tier does."""
+    from candle_video_tpu_torch.models.ltx_video import transformer as PTF
+
+    import copy
+
+    dit = copy.deepcopy(tiny_cli["dit"])
+    flag = []
+    if tier == "w8":
+        PTF.quantize_transformer_w8(dit)
+        flag = ["--dit-int8"]
+    elif tier == "w4":
+        PTF.quantize_transformer_w4(dit)
+        flag = ["--dit-int4"]
+    pipe = PP.LtxPipeline(tiny_cli["cfg"], dit, tiny_cli["dec"])
+    want = PP.generate(pipe, height=64, width=64, num_frames=5, seed=3,
+                       max_sequence_length=16, output_type="latent",
+                       **_random_embeds(tiny_cli["cfg"]))
+    got = _cli_latents(tiny_cli, "--weights-path", tiny_cli["official"], "--output-type",
+                       "latent", *flag)
+    assert got.shape == want.shape and torch.equal(got, want)
+    if tier is None:
+        got = _cli_latents(tiny_cli, "--weights-path", tiny_cli["diffusers"],
+                           "--output-type", "latent")
+        assert torch.equal(got, want)
+
+
+def test_cli_embeddings_initial_and_final_latents_round_trip(tiny_cli, tmp_path):
+    """``--embeddings-file`` and ``--initial-latents-file`` feed ``generate``;
+    ``--save-final-latents`` writes its final latents beside the video, and
+    they equal the latent output of the same request."""
+    from candle_video_tpu_torch.models.ltx_video import loader as PL
+
+    g = torch.Generator().manual_seed(7)
+    emb = dict(prompt_embeds=torch.randn(1, 16, 64, generator=g) * 0.1,
+               prompt_attention_mask=torch.ones(1, 16))
+    emb["prompt_attention_mask"][0, 12:] = 0
+    init = torch.randn(1, 2 * 2 * 2, 8, generator=g)
+    PL.save_safetensors(emb, str(tmp_path / "emb.safetensors"))
+    PL.save_safetensors({"latents": init}, str(tmp_path / "init.safetensors"))
+    files = ["--weights-path", tiny_cli["official"], "--embeddings-file",
+             str(tmp_path / "emb.safetensors"), "--initial-latents-file",
+             str(tmp_path / "init.safetensors")]
+    pipe = PP.LtxPipeline(tiny_cli["cfg"], tiny_cli["dit"], tiny_cli["dec"])
+    want = PP.generate(pipe, height=64, width=64, num_frames=5, seed=3, latents=init,
+                       output_type="latent", **emb)
+    final = tmp_path / "final.safetensors"
+    out = tmp_path / "video_out"
+    assert PCLI.main([*tiny_cli["base"], *files, "--output-dir", str(out),
+                      "--save-final-latents", str(final)]) == 0
+    got = PL.load_safetensors(str(final))["latents"]
+    assert torch.equal(got, want)
+    assert np.load(out / "video_uint8.npy").shape == (5, 16, 16, 3)
+    assert torch.equal(_cli_latents(tiny_cli, *files, "--output-type", "latent"), want)
+
+
+def test_cli_progress_interrupt_stops_before_the_next_step(tiny_cli, tmp_path, monkeypatch):
+    """Under ``--progress`` Ctrl-C sets ``pipe.interrupt``: raised before the
+    first step, the latents are the initial ones; the previous handler is
+    restored after."""
+    from candle_video_tpu_torch.models.ltx_video import loader as PL
+
+    handlers = []
+    monkeypatch.setattr(PCLI.signal, "signal",
+                        lambda sig, handler: handlers.append((sig, handler)) or "previous")
+    generate = PCLI.generate
+
+    def ctrl_c_first(pipe, **kw):
+        handlers[0][1](PCLI.signal.SIGINT, None)
+        return generate(pipe, **kw)
+
+    monkeypatch.setattr(PCLI, "generate", ctrl_c_first)
+    init = torch.randn(1, 8, 8, generator=torch.Generator().manual_seed(2))
+    PL.save_safetensors({"latents": init}, str(tmp_path / "init.safetensors"))
+    got = _cli_latents(tiny_cli, "--weights-path", tiny_cli["official"], "--progress",
+                       "--initial-latents-file", str(tmp_path / "init.safetensors"),
+                       "--output-type", "latent")
+    assert torch.equal(got, init)
+    assert [h[0] for h in handlers] == [PCLI.signal.SIGINT] * 2
+    assert handlers[1][1] == "previous"
+
+
+def test_cli_load_pipeline_takes_t5_dir_and_warns_without_a_t5(tiny_cli, capsys):
+    args = PCLI.build_parser().parse_args([*tiny_cli["base"], "--weights-path",
+                                           tiny_cli["official"], "--t5-dir",
+                                           tiny_cli["t5_dir"]])
+    pipe = PCLI.load_pipeline(args, torch.device("cpu"), torch.float32)
+    assert isinstance(pipe.t5.blocks[0].q, torch.nn.Linear)
+    pipe.tokenizer = MockTokenizer(vocab_size=64, model_max_length=16)  # the tiny vocabulary
+    emb, mask = pipe.encode_prompt(["a cat"], 16)
+    assert emb.shape == (1, 16, 64) and torch.isfinite(emb).all()
+    assert "Loading T5 dir" in capsys.readouterr().out
+    _cli_latents(tiny_cli, "--weights-path", tiny_cli["official"], "--output-type", "latent")
+    assert "WARNING: no T5 weights given" in capsys.readouterr().out
+
+
+def test_cli_parser_takes_the_jax_flags():
+    args = PCLI.build_parser().parse_args(
+        ["--weights-path", "w", "--t5-dir", "t", "--tokenizer", "tok.json", "--frame-rate",
+         "24", "--guidance-rescale", "0.5", "--stg-scale", "4", "--skip-block-list", "11",
+         "25", "--num-videos-per-prompt", "2", "--max-sequence-length", "64",
+         "--embeddings-file", "e", "--initial-latents-file", "i", "--save-final-latents",
+         "f", "--save-frames"])
+    assert (args.weights_path, args.t5_dir, args.tokenizer, args.frame_rate) == (
+        "w", "t", "tok.json", 24.0)
+    assert (args.guidance_rescale, args.stg_scale, args.skip_block_list) == (0.5, 4.0, [11, 25])
+    assert (args.num_videos_per_prompt, args.max_sequence_length) == (2, 64)
+    assert (args.embeddings_file, args.initial_latents_file, args.save_final_latents,
+            args.save_frames) == ("e", "i", "f", True)
