@@ -1,6 +1,7 @@
-"""LTX-Video text-to-video CLI of the PyTorch port (``candle_video_tpu/cli.py``).
+"""LTX-Video text- and image-to-video CLI of the PyTorch port
+(``candle_video_tpu/cli.py``).
 
-With ``--weights-path`` the DiT and the VAE decoder come from a checkpoint:
+With ``--weights-path`` the DiT and the VAE come from a checkpoint:
 an official single ``.safetensors`` file (split by ``weight_format``) or a
 diffusers directory (``transformer/``, ``vae/``).  The DiT loads in
 ``--dtype``, or with ``--dit-int8`` / ``--dit-int4`` its block linears are
@@ -10,6 +11,10 @@ with neither, prompts map to random embeddings (a warning says so) unless
 ``--embeddings-file`` gives them.  Without ``--weights-path`` every module
 is random from ``--seed`` (smoke mode: the DiT in ``--dtype`` or int8 /
 int4, the T5-XXL with int8 weights resident or from ``--t5-gguf``).
+``--image path[:frame[:strength]]`` (repeatable) conditions the video on
+images, which the VAE encoder encodes: the checkpoint must hold the
+encoder's tensors.  ``--vae-tiling`` and ``--vae-slicing`` tile and slice
+the decode.
 
 Run: python -m candle_video_tpu_torch.cli --weights-path ltxv-2b-0.9.8-distilled.safetensors \
          --t5-dir text_encoder --tokenizer tokenizer.json --dit-int8
@@ -17,6 +22,7 @@ Run: python -m candle_video_tpu_torch.cli --weights-path ltxv-2b-0.9.8-distilled
          --num-frames 25 --output-type latent          # random weights
      python -m candle_video_tpu_torch.cli --version 0.9.8-13b-distilled \
          --dit-int4 --height 256 --width 384 --num-frames 25 --output-type latent
+     python -m candle_video_tpu_torch.cli --image first.png --image last.png:12:0.9
 
 Sequence-parallel ring attention over N GPUs of one host, one process each:
      torchrun --nproc_per_node=N -m candle_video_tpu_torch.cli --mesh sp=N
@@ -107,6 +113,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write one PNG a frame (needs Pillow)")
     p.add_argument("--gif", action="store_true", help="also write video.gif (needs imageio)")
     p.add_argument("--mp4", action="store_true", help="also write video.mp4 (needs imageio)")
+    p.add_argument("--image", type=str, action="append", default=None,
+                   help="conditioning image, resized to --height x --width; repeatable; "
+                        "'path[:frame[:strength]]' places the anchor at a latent frame "
+                        "index (default 0) with a strength (default 1.0), e.g. --image "
+                        "a.png --image b.png:12:0.9 for first+last interpolation")
+    p.add_argument("--vae-tiling", action="store_true",
+                   help="decode with spatial and temporal VAE tiling (approximate: "
+                        "blended overlaps), and encode the --image anchors tiled")
+    p.add_argument("--vae-slicing", action="store_true",
+                   help="decode the batch's videos one at a time")
     p.add_argument("--vae-stream-chunks", type=int, default=0,
                    help="decode with the exact streamed tail in N temporal chunks "
                         "(overlap-save conv caches, zero recompute); default: the mode "
@@ -126,6 +142,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "(generate(sp_mesh=make_mesh(dp=M, sp=N))); tp and pp are not "
                         "yet ported")
     return p
+
+
+def parse_image_spec(spec: str) -> tuple:
+    """'path[:frame[:strength]]' -> (path, frame_index, strength).  The
+    trailing pieces count only when they parse as numbers, so paths holding
+    ':' still resolve ('C:/img.png', 'img.png:12:0.9')."""
+    parts = spec.rsplit(":", 2)
+    if len(parts) == 3:
+        try:
+            return parts[0], int(parts[1]), float(parts[2])
+        except ValueError:
+            pass
+    if len(parts) >= 2:
+        try:
+            return spec.rsplit(":", 1)[0], int(parts[-1]), 1.0
+        except ValueError:
+            pass
+    return spec, 0, 1.0
 
 
 _MESH_AXES = ("dp", "sp", "tp", "pp")
@@ -177,7 +211,7 @@ def build_random_pipeline(version: str, device, dtype=torch.bfloat16, seed: int 
                           max_sequence_length: int = 128, dit_quant: str | None = None,
                           t5_quant: str = "int8", t5=None) -> LtxPipeline:
     """A preset's full-width pipeline with random weights made on ``device``
-    from ``seed``: VAE decoder in ``dtype``; DiT in ``dtype``, or with its
+    from ``seed``: VAE decoder and encoder in ``dtype``; DiT in ``dtype``, or with its
     block linears as weight-only int8 (``dit_quant="w8"``) or int4 (``"w4"``);
     T5-XXL resident with int8 (``t5_quant="int8"``) or Q4_K-form 4-bit
     (``"w4"``) weights, unless a loaded encoder ``t5`` is given."""
@@ -189,12 +223,14 @@ def build_random_pipeline(version: str, device, dtype=torch.bfloat16, seed: int 
     g = torch.Generator(device=device).manual_seed(seed)
     transformer = _DIT_INITS[dit_quant](cfg.transformer, device, dtype, generator=g)
     vae = V.init_random(cfg.vae, device, dtype, generator=g)
+    encoder = V.init_random_encoder(cfg.vae, device, dtype, generator=g)
     t5_cfg = t5_xxl()
     if t5 is None:
         t5 = _T5_INITS[t5_quant](t5_cfg, device, dtype)
     return LtxPipeline(config=cfg, transformer=transformer, vae=vae, t5=t5,
                        t5_config=t5_cfg,
-                       tokenizer=MockTokenizer(model_max_length=max_sequence_length))
+                       tokenizer=MockTokenizer(model_max_length=max_sequence_length),
+                       vae_encoder=encoder)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -229,7 +265,8 @@ _DIT_LOADERS = {None: L.transformer_from_state_dict, "w8": L.transformer_w8_from
 
 def load_pipeline(args, device, dtype) -> LtxPipeline:
     """The pipeline the arguments ask for (JAX ``cli.load_pipeline``): the
-    DiT and the VAE decoder from ``--weights-path`` (an official file through
+    DiT, the VAE decoder and, where the file holds it, the VAE encoder from
+    ``--weights-path`` (an official file through
     ``detect_format`` and ``split_unified_state_dict``, or a diffusers
     directory's ``transformer/`` and ``vae/``), the DiT dense or streamed
     into int8 / int4; the T5 from ``--t5-gguf`` / ``--t5-dir``.  Without
@@ -258,9 +295,11 @@ def load_pipeline(args, device, dtype) -> LtxPipeline:
               "layer by layer")
     transformer = _DIT_LOADERS[dit_quant](tsd, cfg.transformer, device, dtype)
     vae = L.vae_decoder_from_state_dict(vsd, cfg.vae, device, dtype)
+    encoder = (L.vae_encoder_from_state_dict(vsd, cfg.vae, device, dtype)
+               if L.has_vae_encoder(vsd) else None)
     return LtxPipeline(config=cfg, transformer=transformer, vae=vae,
                        t5=load_t5(args, device, dtype), t5_config=t5_xxl(),
-                       tokenizer=tokenizer)
+                       tokenizer=tokenizer, vae_encoder=encoder)
 
 
 def main(argv=None) -> int:
@@ -323,6 +362,17 @@ def _run(args, dit_quant, device, sp_mesh=None) -> int:
     kwargs = _prompt_kwargs(args, pipe)
     if args.initial_latents_file:
         kwargs["latents"] = L.load_safetensors(args.initial_latents_file)["latents"]
+    if args.image:
+        if pipe.vae_encoder is None:
+            raise SystemExit(f"--image needs the VAE encoder, and {args.weights_path} holds "
+                             "none of its tensors (encoder.*)")
+        from .models.ltx_video.pipeline import ConditioningItem
+        from .utils.video_io import load_image
+
+        kwargs["conditioning"] = [
+            ConditioningItem(image=load_image(path, args.height, args.width),
+                             frame_index=frame_index, strength=strength)
+            for path, frame_index, strength in map(parse_image_spec, args.image)]
     final = {}
     step_callback = None
     if sp_mesh is None:
@@ -351,7 +401,9 @@ def _run(args, dit_quant, device, sp_mesh=None) -> int:
                        max_sequence_length=args.max_sequence_length,
                        use_pcg_rng=args.pcg_rng, output_type=args.output_type,
                        step_callback=step_callback,
-                       vae_tail_stream_chunks=args.vae_stream_chunks, sp_mesh=sp_mesh,
+                       vae_tail_stream_chunks=args.vae_stream_chunks,
+                       use_vae_tiling=args.vae_tiling, use_vae_slicing=args.vae_slicing,
+                       sp_mesh=sp_mesh,
                        **kwargs)
     finally:
         if previous is not None:

@@ -151,6 +151,20 @@ def vae_decoder_from_jax(tree, cfg: LtxVaeConfig, device="cpu", dtype=None):
     return _load(V.empty_decoder(cfg, device, dtype), state, device)
 
 
+@torch.no_grad()
+def vae_encoder_from_jax(tree, cfg: LtxVaeConfig, device="cpu", dtype=None):
+    """JAX VAE tree (its ``encoder``; a ``norm_out`` there gives the module
+    one) -> LtxVaeEncoder."""
+    enc = tree["encoder"]
+    dtype = dtype or _dtype_of(enc["conv_in"]["weight"])
+    state = {}
+    for key, arr in _flatten(enc):
+        key = key.replace("downsamplers.0.", "downsampler.")
+        state["norm_out" if key == "norm_out.weight" else key] = np.asarray(arr, np.float32)
+    model = V.empty_encoder(cfg, device, dtype, norm_out="norm_out" in enc)
+    return _load(model, state, device)
+
+
 def _linear(p, device, dtype):
     if "w_q" in p:
         b = p.get("b")

@@ -17,7 +17,8 @@ The port renamed some diffusers modules (``blocks`` for
 ``ff.net.0.proj``, ...).  ``dit_checkpoint_name`` and
 ``vae_checkpoint_name`` map each of the port's parameter names to the
 checkpoint's; the loaders read through them, and
-``transformer_state_dict`` / ``vae_decoder_state_dict`` write through them.
+``transformer_state_dict``, ``vae_decoder_state_dict`` and
+``vae_encoder_state_dict`` write through them.
 """
 
 from __future__ import annotations
@@ -186,9 +187,12 @@ _DIT_RENAMES = (
     ("suffix", ".norm_q", ".norm_q.weight"),
     ("suffix", ".norm_k", ".norm_k.weight"),
 )
-# inside the decoder; every conv's parameters sit one level down, in ``conv``
+# inside the encoder and the decoder; every conv's parameters sit one level
+# down, in ``conv``
 _VAE_RENAMES = (
     ("infix", ".upsampler.", ".upsamplers.0."),
+    ("infix", ".downsampler.", ".downsamplers.0."),
+    ("suffix", "norm_out", "norm_out.weight"),
     ("infix", "time_embedder.", "time_embedder.timestep_embedder."),
 ) + tuple(("suffix", f"{conv}.{leaf}", f"{conv}.conv.{leaf}")
           for conv in ("conv_in", "conv_out", ".conv1", ".conv2", ".conv")
@@ -213,10 +217,12 @@ def dit_checkpoint_name(name: str) -> str:
     return _rename(name, _DIT_RENAMES)
 
 
-def vae_checkpoint_name(name: str) -> str:
-    """The diffusers name of the ``LtxVaeDecoder`` parameter or buffer
-    ``name`` (``decoder.*``, the latent statistics at the top level)."""
-    return name if name in _VAE_TOP else "decoder." + _rename(name, _VAE_RENAMES)
+def vae_checkpoint_name(name: str, part: str = "decoder") -> str:
+    """The diffusers name of the ``LtxVaeDecoder`` (``part="decoder"``) or
+    ``LtxVaeEncoder`` (``part="encoder"``) parameter or buffer ``name``
+    (``decoder.*`` / ``encoder.*``, the latent statistics at the top
+    level)."""
+    return name if name in _VAE_TOP else f"{part}." + _rename(name, _VAE_RENAMES)
 
 
 def transformer_state_dict(model) -> Dict[str, torch.Tensor]:
@@ -227,6 +233,11 @@ def transformer_state_dict(model) -> Dict[str, torch.Tensor]:
 def vae_decoder_state_dict(model) -> Dict[str, torch.Tensor]:
     """An ``LtxVaeDecoder``'s tensors under the checkpoint's names."""
     return {vae_checkpoint_name(k): v for k, v in model.state_dict().items()}
+
+
+def vae_encoder_state_dict(model) -> Dict[str, torch.Tensor]:
+    """An ``LtxVaeEncoder``'s tensors under the checkpoint's names."""
+    return {vae_checkpoint_name(k, "encoder"): v for k, v in model.state_dict().items()}
 
 
 def _take(sd, key):
@@ -411,3 +422,55 @@ def vae_decoder_from_state_dict(sd, cfg: LtxVaeConfig, device="cuda", dtype=torc
                           f"place for: {extra[:5]}{' ...' if len(extra) > 5 else ''}")
     return model.eval()
 
+
+
+def _encoder_structure(sd) -> dict:
+    """The encoder's down blocks ((resnets, has a downsampler) each), its
+    mid-block resnets and whether it has ``norm_out``, as the file's keys
+    give them (the JAX loader's discovery; its downsamplers are optional)."""
+    downs, i = [], 0
+    while True:
+        pre = f"encoder.down_blocks.{i}"
+        has_ds = f"{pre}.downsamplers.0.conv.conv.weight" in sd
+        if f"{pre}.resnets.0.conv1.conv.weight" not in sd and not has_ds:
+            break
+        downs.append((_count_resnets(sd, pre), has_ds))
+        i += 1
+    return dict(down_blocks=downs, mid=_count_resnets(sd, "encoder.mid_block"),
+                norm_out="encoder.norm_out.weight" in sd)
+
+
+def has_vae_encoder(sd) -> bool:
+    """Whether a VAE state dict holds the encoder's tensors."""
+    return "encoder.conv_in.conv.weight" in sd
+
+
+@torch.no_grad()
+def vae_encoder_from_state_dict(sd, cfg: LtxVaeConfig, device="cuda", dtype=torch.bfloat16):
+    """The encoder half of a diffusers-layout LTX VAE state dict (JAX
+    ``vae_params_from_state_dict``) -> ``LtxVaeEncoder`` on ``device``:
+    ``conv_in``, ``down_blocks`` (resnets and, where the file has them,
+    downsamplers), ``mid_block``, the optional ``norm_out`` weight and
+    ``conv_out``.  Decoder tensors are skipped.  An encoder whose block,
+    resnet or downsampler layout differs from ``cfg``'s, or that holds other
+    tensors, raises."""
+    device = loader_device(device)
+    found = _encoder_structure(sd)
+    model = V.empty_encoder(cfg, device, dtype, norm_out=found["norm_out"])
+    want = dict(down_blocks=[(len(b.resnets), b.downsampler is not None)
+                             for b in model.down_blocks],
+                mid=len(model.mid_block.resnets), norm_out=found["norm_out"])
+    if found != want:
+        raise LoaderError(f"the file's encoder has {found}, the config's {want} "
+                          "((resnets, downsampler) per down block; mid-block resnets)")
+
+    def name(n):
+        return vae_checkpoint_name(n, "encoder")
+
+    _fill(model, sd, name)
+    read = {name(k) for k in model.state_dict()}
+    extra = sorted(k for k in sd if k.startswith("encoder.") and k not in read)
+    if extra:
+        raise LoaderError(f"the file's encoder holds tensors the config's encoder has no "
+                          f"place for: {extra[:5]}{' ...' if len(extra) > 5 else ''}")
+    return model.eval()

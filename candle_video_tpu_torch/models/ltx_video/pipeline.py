@@ -1,17 +1,27 @@
-"""LTX-Video text-to-video pipeline
-(``candle_video_tpu/models/ltx_video/pipeline.py``: ``generate``, t2v).
+"""LTX-Video text- and image-to-video pipeline
+(``candle_video_tpu/models/ltx_video/pipeline.py``: ``generate``).
 
 Prompt encode (T5) → PCG32 latents → flow-matching Euler steps of the DiT
 with CFG/STG rows batched on the batch axis → unpack, denormalise and
 decode-noise mix → VAE decode (dense or an exact streamed mode, resolved
-once before the denoise) → [0, 255].  The denoise loop is a Python loop
-over steps; latents stay f32 across steps and enter the DiT in its dtype.
+once before the denoise; tiled and sliced on request) → [0, 255].  The
+denoise loop is a Python loop over steps; latents stay f32 across steps and
+enter the DiT in its dtype.
+
+Image conditioning (``image=``, ``image_latents=``, ``conditioning=``): each
+anchor is VAE-encoded (``LtxPipeline.vae_encoder``), sampled from its
+posterior or taken at its mean, normalised with the decoder's latent
+statistics and mixed into the initial latents at its frame with its
+strength; ``denoise_loop_i2v`` then runs each token at its own timestep
+``t·(1 - strength)`` and holds the tokens below their noise floor.
 
 Every seeded draw follows the JAX package's key sequence and is made on the
 host (``utils/rng.py``), so one seed gives the JAX package's numbers on the
 CPU and on the card: the initial latents (PCG32, or ``PRNGKey(seed)`` with
 ``use_pcg_rng=False``), the stochastic step noise (``PRNGKey(seed + 1)``,
-split once per step) and the decode noise (``PRNGKey(seed + 2)``).
+split once per step), the decode noise (``PRNGKey(seed + 2)``) and anchor
+``idx``'s posterior sample (``PRNGKey(seed + 3 + idx)``, in the encoder's
+dtype).
 """
 
 from __future__ import annotations
@@ -152,6 +162,50 @@ def denoise_loop(transformer, latents, encoder_hidden_states, encoder_attention_
     return lat
 
 
+def denoise_loop_i2v(transformer, latents, cond_mask, encoder_hidden_states,
+                     encoder_attention_mask, schedule: S.Schedule, rope_cos, rope_sin, *,
+                     num_conds: int = 1, guidance_scale: float = 1.0,
+                     guidance_rescale: float = 0.0, stg_scale: float = 0.0,
+                     skip_layer_mask=None, num_train_timesteps: int = 1000,
+                     step_callback=None, step_seconds: Optional[list] = None,
+                     interrupted=None):
+    """The image-conditioned Euler steps; returns final latents [B, S, C] f32.
+
+    ``latents`` already hold the anchors' clean latents mixed with noise,
+    ``cond_mask`` [B, S] each token's conditioning strength (1 = held).  At
+    step timestep t every token runs at ``t·(1 - mask)`` through the
+    per-token AdaLN (the guidance rows tile it), steps by
+    ``scheduler.step_per_token`` over the whole schedule, and keeps its
+    value while ``t / num_train_timesteps - 1e-6`` is not below its ``1 -
+    mask``.  ``step_callback``, ``step_seconds`` and ``interrupted`` as in
+    ``denoise_loop``."""
+    lat = latents.float()
+    inv_mask = 1.0 - cond_mask.float()
+    b = lat.shape[0]
+    n = schedule.timesteps.shape[0]
+    for i in range(n):
+        if interrupted is not None and interrupted():
+            break
+        t0 = time.perf_counter()
+        t = torch.tensor(float(schedule.timesteps[i]), dtype=torch.float32, device=lat.device)
+        tok_t = t * inv_mask
+        pred = transformer(lat.repeat(num_conds, 1, 1), encoder_hidden_states,
+                           tok_t.repeat(num_conds, 1), rope_cos, rope_sin,
+                           encoder_attention_mask=encoder_attention_mask,
+                           skip_layer_mask=skip_layer_mask).float()
+        combined = guidance_combine(pred, b, num_conds, guidance_scale,
+                                    guidance_rescale, stg_scale)
+        denoised = S.step_per_token(lat, combined, schedule.sigmas, tok_t, num_train_timesteps)
+        moving = ((t / num_train_timesteps - 1e-6) < inv_mask)[..., None]
+        lat = torch.where(moving, denoised, lat)
+        if step_seconds is not None:
+            _sync(lat.device)
+            step_seconds.append(time.perf_counter() - t0)
+        if step_callback is not None:
+            step_callback(i, n, lat)
+    return lat
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -167,6 +221,9 @@ class LtxPipeline:
     t5: Any = None  # t5.T5Encoder
     t5_config: Optional[T5Config] = None
     tokenizer: Any = None  # utils.tokenizer.MockTokenizer or a T5 wrapper
+    # vae.LtxVaeEncoder, for image conditioning (the latent statistics stay
+    # the decoder's buffers)
+    vae_encoder: Any = None
     # cooperative interrupt: generate() stops before the next denoise step
     # once it is set (the CLI's --progress sets it on Ctrl-C)
     interrupt: bool = False
@@ -199,6 +256,22 @@ class LtxPipeline:
 
     def __call__(self, **kwargs):
         return generate(self, **kwargs)
+
+
+@dataclasses.dataclass
+class ConditioningItem:
+    """One conditioning anchor: ``image`` [B, 3, H, W] (or [3, H, W]) in
+    [-1, 1], VAE-encoded at preparation, or ``latents`` [B, C, 1, h, w] as
+    the encoder emits them (not normalised), placed at latent frame
+    ``frame_index`` with ``strength`` in (0, 1]: 1 holds the frame through
+    the whole loop; s < 1 mixes ``s·anchor + (1 - s)·noise`` and denoises the
+    frame once the schedule falls below its noise floor.  Later items
+    override earlier ones on the same frame."""
+
+    image: Any = None
+    latents: Any = None
+    frame_index: int = 0
+    strength: float = 1.0
 
 
 def check_inputs(height: int, width: int, prompt, prompt_embeds,
@@ -235,6 +308,55 @@ def _as_tensor(x, device, dtype=None):
     return t.to(device=device, dtype=dtype)
 
 
+def _conditioning_mask(pipe, conditioning, shape):
+    """Each latent frame's conditioning strength, [B, 1, F, H, W] f32, after
+    the JAX refusals."""
+    if pipe.vae is None:
+        raise ValueError("image conditioning requires VAE params (encoder + latent stats)")
+    cond = np.zeros(shape, np.float32)
+    for item in conditioning:
+        if not 0 <= item.frame_index < shape[2]:
+            raise ValueError(f"frame_index {item.frame_index} outside latent range "
+                             f"[0, {shape[2]})")
+        if not 0.0 < item.strength <= 1.0:
+            raise ValueError(f"strength must be in (0, 1], got {item.strength}")
+        if item.image is None and item.latents is None:
+            raise ValueError("ConditioningItem needs image or latents")
+        if item.latents is None and pipe.vae_encoder is None:
+            raise ValueError("a ConditioningItem with an image needs the pipeline's VAE "
+                             "encoder (LtxPipeline.vae_encoder)")
+        cond[:, :, item.frame_index] = item.strength
+    return torch.from_numpy(cond).to(pipe.device)
+
+
+def _anchor_latents(pipe, item, idx: int, seed: int, eff_batch: int,
+                    num_videos_per_prompt: int, sample_mode: str, use_tiling: bool):
+    """One anchor's normalised latents [eff_batch, C, 1, h, w] f32: its image
+    encoded and sampled with ``PRNGKey(seed + 3 + idx)`` (or its posterior
+    mean), or its given latents."""
+    device = pipe.device
+    if item.latents is None:
+        img = _as_tensor(item.image, device, torch.float32)
+        if img.ndim == 3:
+            img = img[None]
+        moments = V.encode(pipe.vae_encoder, img[:, :, None], use_tiling=use_tiling)
+        if sample_mode == "sample":
+            il = V.gaussian_sample(moments, R.prng_key(seed + 3 + idx))
+        elif sample_mode == "argmax":
+            il, _ = V.gaussian_split(moments)
+        else:
+            raise ValueError(f"unknown conditioning_sample_mode {sample_mode!r}")
+    else:
+        il = _as_tensor(item.latents, device, torch.float32)
+    il = V.normalize_latents(il, pipe.vae.latents_mean, pipe.vae.latents_std,
+                             pipe.config.vae.scaling_factor)
+    if il.shape[0] == 1 and eff_batch > 1:
+        il = il.expand(eff_batch, *il.shape[1:])
+    elif num_videos_per_prompt > 1:
+        il = il.repeat_interleave(num_videos_per_prompt, 0)
+    return il.float()
+
+
 @torch.no_grad()
 def generate(
     pipe: LtxPipeline,
@@ -254,6 +376,10 @@ def generate(
     num_videos_per_prompt: int = 1,
     seed: int = 42,
     latents=None,
+    image=None,  # [B,3,H,W] or [3,H,W] in [-1, 1]: one hard anchor on frame 0
+    image_latents=None,  # [B,C,1,h,w] precomputed (not normalised) frame-0 latents
+    conditioning: Optional[Sequence[ConditioningItem]] = None,  # the anchors
+    conditioning_sample_mode: str = "sample",  # "sample" | "argmax" posterior
     prompt_embeds=None,
     prompt_attention_mask=None,
     negative_prompt_embeds=None,
@@ -269,14 +395,26 @@ def generate(
     vae_tail_stream_chunks: int = 0,  # exact streamed tail (overlap-save)
     vae_tail_stream_from_ups: bool = False,  # ...started before the last upsampler
     vae_full_stream_chunks: int = 0,  # every decoder stage streamed
+    vae_tiling: Optional[V.TilingConfig] = None,
+    use_vae_tiling: bool = False,  # spatial and temporal tiling (approximate)
+    use_vae_slicing: bool = False,  # decode the batch rows one at a time
     sp_mesh=None,  # parallel.Mesh: the sequence-parallel denoise over its ring
 ):
-    """Text-to-video generation.  Returns [B, 3, F, H, W] f32 in [0, 255],
-    or the final packed latents [B, S, C] f32 for ``output_type="latent"``.
+    """Text- or image-to-video generation.  Returns [B, 3, F, H, W] f32 in
+    [0, 255], or the final packed latents [B, S, C] f32 for
+    ``output_type="latent"``.
 
     ``stage_times``, when a dict, receives synchronised wall-clock seconds
-    of the stages: ``t5_encode``, ``denoise_steps`` (a list), ``vae_decode``
-    and ``total``, and ``decode_mode``, the decode keywords used.
+    of the stages: ``t5_encode``, ``anchor_encode`` (with image
+    conditioning), ``denoise_steps`` (a list), ``vae_decode`` and ``total``,
+    and ``decode_mode``, the decode keywords used.
+
+    ``image`` / ``image_latents`` place one hard anchor on the first latent
+    frame; ``conditioning`` is the general list of ``ConditioningItem``s (at
+    most one of the two).  Anchors' images are encoded with
+    ``use_tiling=use_vae_tiling``; caller-given ``latents`` are used as
+    they are (assumed mixed already).  ``use_vae_tiling`` turns on both
+    spatial and temporal tiling of the decode, as in the JAX ``generate``.
 
     ``sp_mesh`` (``parallel.make_mesh``): every rank of the mesh calls
     ``generate`` with the same arguments; the denoise runs sequence-parallel
@@ -361,7 +499,30 @@ def generate(
         warnings.warn(f"num_frames should be {tr}*n+1; {num_frames} will produce "
                       f"{(num_frames - 1) // tr * tr + 1} frames", stacklevel=2)
     lf, lh, lw = (num_frames - 1) // tr + 1, height // sr, width // sr
-    if latents is None:
+    if conditioning is not None and (image is not None or image_latents is not None):
+        raise ValueError("pass either `conditioning` or `image`/`image_latents`")
+    if image is not None or image_latents is not None:
+        conditioning = [ConditioningItem(image=image, latents=image_latents)]
+    i2v = bool(conditioning)
+    if i2v:
+        cond5 = _conditioning_mask(pipe, conditioning, (eff_batch, 1, lf, lh, lw))
+        cond_mask = pack_latents(cond5, tcfg.patch_size, tcfg.patch_size_t)[..., 0]
+    if latents is None and i2v:
+        t_anchor = time.perf_counter()
+        shape = (eff_batch, tcfg.in_channels, lf, lh, lw)
+        noise5 = torch.from_numpy(R.Pcg32(seed, 0).randn(shape) if use_pcg_rng
+                                  else R.normal(R.prng_key(seed), shape)).to(device)
+        init5 = torch.zeros(shape, dtype=torch.float32, device=device)
+        for idx, item in enumerate(conditioning):
+            init5[:, :, item.frame_index:item.frame_index + 1] = _anchor_latents(
+                pipe, item, idx, seed, eff_batch, num_videos_per_prompt,
+                conditioning_sample_mode, use_vae_tiling)
+        lat5 = init5 * cond5 + noise5 * (1.0 - cond5)
+        latents = pack_latents(lat5, tcfg.patch_size, tcfg.patch_size_t)
+        if timing:
+            _sync(device)
+            stage_times["anchor_encode"] = time.perf_counter() - t_anchor
+    elif latents is None:
         shape = (eff_batch, tcfg.in_channels, lf, lh, lw)
         lat5 = (R.Pcg32(seed, 0).randn(shape) if use_pcg_rng
                 else R.normal(R.prng_key(seed), shape))
@@ -416,7 +577,19 @@ def generate(
     guidance = dict(num_conds=num_conds, guidance_scale=guidance_scale,
                     guidance_rescale=guidance_rescale if do_cfg else 0.0, stg_scale=stg_scale,
                     skip_layer_mask=skip_mask, step_seconds=step_seconds)
-    if sp_mesh is not None:
+    if i2v:
+        if sp_mesh is not None:
+            raise ValueError("image conditioning is not supported in SP mode (per-token "
+                             "timesteps are not wired through the ring loop)")
+        if stochastic:
+            raise ValueError("stochastic sampling is not supported with image conditioning "
+                             "(per-token scheduler path)")
+        final = denoise_loop_i2v(pipe.transformer, latents, cond_mask, enc_states, enc_mask,
+                                 schedule, rope_cos, rope_sin,
+                                 num_train_timesteps=cfg.scheduler.num_train_timesteps,
+                                 step_callback=step_callback,
+                                 interrupted=lambda: pipe.interrupt, **guidance)
+    elif sp_mesh is not None:
         final = denoise_loop_sp(pipe.transformer, latents, enc_states, enc_mask, schedule,
                                 rope_cos, rope_sin, mesh=sp_mesh, **guidance)
     else:
@@ -452,7 +625,9 @@ def generate(
                           scale, num_frames=lf, height=lh, width=lw,
                           patch_size=tcfg.patch_size, patch_size_t=tcfg.patch_size_t,
                           scaling_factor=vcfg.scaling_factor)
-    video = V.decode(pipe.vae, lat5, temb, **decode_kw)
+    video = V.decode(pipe.vae, lat5, temb, tiling=vae_tiling, use_tiling=use_vae_tiling,
+                     use_framewise_decoding=use_vae_tiling, use_slicing=use_vae_slicing,
+                     **decode_kw)
     video = postprocess_video(video)
     if timing:
         stage_times["decode_mode"] = decode_kw

@@ -4,6 +4,8 @@ scheduler.py``).
 The sigma schedule is a handful of scalars built host-side in f32 NumPy (the
 JAX package's helpers, copied); the Euler update runs on tensors in f32
 across steps.  Stochastic sampling takes an explicit ``noise`` tensor.
+``step_per_token`` is the image-conditioned loop's step, each token at its
+own timestep.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,6 +222,38 @@ def set_timesteps(
         timesteps=out_ts.astype(np.float32),
         num_inference_steps=num_inference_steps,
     )
+
+
+def index_for_timestep(schedule: Schedule, timestep: float, pos_fallback: int = 1) -> int:
+    """The index of ``timestep`` in the schedule; the second match when it
+    occurs more than once."""
+    idx = np.nonzero(np.abs(schedule.timesteps - np.float32(timestep)) < 1e-6)[0]
+    if idx.size == 0:
+        raise ValueError(f"timestep {timestep} not found in schedule")
+    return int(idx[pos_fallback if idx.size > 1 else 0])
+
+
+def scale_noise(sample, sigma, noise):
+    """The forward process sigma·noise + (1 - sigma)·sample; ``sigma`` a
+    scalar or [B], broadcast over the trailing axes, in the sample's
+    dtype."""
+    sigma = torch.as_tensor(sigma, dtype=sample.dtype, device=sample.device)
+    sigma = sigma.reshape(sigma.shape + (1,) * (sample.ndim - sigma.ndim))
+    return sigma * noise + (1.0 - sigma) * sample
+
+
+def step_per_token(sample, model_output, schedule_sigmas, per_token_timesteps,
+                   num_train_timesteps: int = 1000):
+    """The Euler step with a timestep per token (``per_token_timesteps`` [B,
+    S]), in f32: each token's sigma_next is the largest sigma of the whole
+    ``[N+1]`` schedule strictly below its own sigma - 1e-6 (0 when none
+    is)."""
+    x, v = sample.float(), model_output.float()
+    tok_sigma = per_token_timesteps.float() / float(num_train_timesteps)
+    sig = torch.as_tensor(np.asarray(schedule_sigmas, np.float32), device=x.device)
+    sig = sig.reshape(-1, *(1,) * tok_sigma.ndim)
+    lower = torch.where(sig < tok_sigma[None] - 1e-6, sig, 0.0).amax(dim=0)
+    return x - (tok_sigma - lower)[..., None] * v
 
 
 def step(sample, model_output, sigma, sigma_next, *, stochastic: bool = False,

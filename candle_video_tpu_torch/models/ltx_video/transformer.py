@@ -88,8 +88,9 @@ class FeedForward(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """One LtxVideoTransformerBlock with the T = 1 (one timestep per row)
-    AdaLN modulation."""
+    """One LtxVideoTransformerBlock.  ``temb6`` [B, T, 6·D] modulates with
+    T = 1 (one timestep per row, text-to-video) or T = S (one per token,
+    the image-conditioned loop)."""
 
     def __init__(self, cfg: LtxTransformerConfig, dtype):
         super().__init__()
@@ -148,7 +149,9 @@ class LtxTransformer3D(nn.Module):
 
     def forward(self, hidden_states, encoder_hidden_states, timestep, rope_cos,
                 rope_sin, encoder_attention_mask=None, skip_layer_mask=None, ring=None):
-        """hidden [B,S,C_in], caption states [B,K,C_cap], timestep [B] f32,
+        """hidden [B,S,C_in], caption states [B,K,C_cap], timestep [B] f32
+        (one per row) or [B,S] (one per token: the AdaLN modulations and the
+        final scale/shift become per token),
         rope tables [1|B,S,inner] f32, mask [B,K] (1 keep / 0 pad), skip
         mask [L,B] (1 = skip), ``ring`` the sequence-parallel process group
         (S and the tables are then this rank's shard).  Returns [B,S,C_out]

@@ -1,12 +1,18 @@
-"""LTX-Video VAE decoder, NCDHW (``candle_video_tpu/models/ltx_video/vae.py``:
-``decoder_forward`` and its exact streamed modes).
+"""LTX-Video VAE, NCDHW (``candle_video_tpu/models/ltx_video/vae.py``): the
+decoder (``decoder_forward`` and its exact streamed modes), the encoder
+(``encoder_forward``), the posterior, and spatial and temporal tiling.
 
-conv_in → mid resnets → up blocks (depth-to-space upsampler with
+Decoder: conv_in → mid resnets → up blocks (depth-to-space upsampler with
 channel-repeat residual and causal frame crop, then timestep-conditioned
 resnets) → output RMSNorm + decoder-level scale/shift modulation → SiLU →
-conv_out → unpatchify.  Convolutions go through ``ops/conv3d.py``:
+conv_out → unpatchify.  Encoder: patchify → conv_in → down blocks (causal
+resnets, then a pixel-unshuffle downsampler with a grouped-mean residual) →
+mid resnets → RMSNorm (affine when the checkpoint has ``norm_out``) → SiLU
+→ conv_out to latent + 1 channels → the last (logvar) channel replicated to
+2·latent moments.  Convolutions go through ``ops/conv3d.py``:
 ``torch.nn.functional.conv3d`` (cuDNN), or with ``CVT_CONV3D_IMPL=igemm``
-K8 for every 3x3x3 conv whose widths are multiples of 128.
+K8 for every 3x3x3 conv whose widths are multiples of 128, in the encoder
+as in the decoder.
 
 The decoder splits into a head (through the last upsampler) and a tail (the
 last block's resnets, the output modulation, conv_out, unpatchify).  The
@@ -25,13 +31,23 @@ next: every frame is convolved once and the result equals the dense decode.
   (``decoder_forward_fullstream``).
 
 ``select_decode_mode`` picks the first mode whose measured peak fits the
-card's free memory.  Spatial and temporal tiling (approximate: they blend
-overlaps) and decoder noise injection are not ported.
+card's free memory.  Tiling (``tiled_decode`` / ``tiled_encode`` in space,
+``temporal_tiled_decode`` / ``temporal_tiled_encode`` in time) is
+approximate: tiles overlap and their seams are blended with linear ramps.
+The facades ``decode`` and ``encode`` dispatch as the JAX ones do (batch
+slicing, then temporal tiling, then spatial tiling, then the direct call);
+each decode tile runs the exact mode asked for.  One deliberate difference:
+``decode`` is dense by default (``use_tiling=False``,
+``use_framewise_decoding=False``), where the JAX facade defaults both to
+True; ``generate()`` passes both, as the JAX ``generate`` does.  Decoder
+noise injection and the JAX channels-last encoder twin are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -76,8 +92,9 @@ def _same(x):
 
 
 class ResnetBlock(nn.Module):
-    """LtxVideoResnetBlock3d with a per-block [4, C] scale/shift table.  The
-    decoder's resnets keep their width, so there is no shortcut conv.
+    """LtxVideoResnetBlock3d with a per-block [4, C] scale/shift table
+    (``conditioned``).  The encoder's and the decoder's resnets keep their
+    width, so there is no shortcut conv.
 
     ``conv1``/``conv2`` (h -> y) and ``align`` (x -> x) replace the block
     convs and the identity shortcut in the streamed walks."""
@@ -512,6 +529,146 @@ def decoder_forward_fullstream(decoder: LtxVaeDecoder, z, temb=None, n_chunks: i
 
 
 # ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+_DOWNSAMPLE_STRIDES = {
+    "conv": (2, 2, 2),
+    "spatial": (1, 2, 2),
+    "temporal": (2, 1, 1),
+    "spatiotemporal": (2, 2, 2),
+}
+
+
+def _patchify(x, p: int, pt: int):
+    """[B, C, F, H, W] -> [B, C·pt·p·p, F/pt, H/p, W/p], channel order
+    [c, pt, p_w, p_h] (p_w before p_h)."""
+    b, c, f, h, w = x.shape
+    x = x.reshape(b, c, f // pt, pt, h // p, p, w // p, p)
+    x = x.permute(0, 1, 3, 7, 5, 2, 4, 6)
+    return x.reshape(b, c * pt * p * p, f // pt, h // p, w // p)
+
+
+def _unshuffle(y, st: int, sh: int, sw: int):
+    """[B, C, T·st, H·sh, W·sw] -> [B, C·st·sh·sw, T, H, W], channel order
+    c-major then (st, sh, sw)."""
+    b, c, t, hgt, wid = y.shape
+    tn, hn, wn = t // st, hgt // sh, wid // sw
+    y = y.reshape(b, c, tn, st, hn, sh, wn, sw)
+    y = y.permute(0, 1, 3, 5, 7, 2, 4, 6)
+    return y.reshape(b, c * st * sh * sw, tn, hn, wn)
+
+
+class Downsampler(nn.Module):
+    """LtxVideoDownsampler3d: pad the front with st-1 copies of the first
+    frame (apart from the conv's own causal padding), conv to
+    ``out_channels / (st·sh·sw)``, unshuffle space and time into channels,
+    and add the unshuffled input averaged over groups of channels."""
+
+    def __init__(self, c_in: int, c_out: int, dtype):
+        super().__init__()
+        self.conv = Conv3d(c_in, c_out, 3, dtype)
+
+    def forward(self, x, stride, out_channels: int, causal: bool):
+        st, sh, sw = stride
+        b, c = x.shape[:2]
+        group = c * st * sh * sw // out_channels
+        if st > 1:
+            x = torch.cat([x[:, :, :st - 1], x], dim=2)
+        res = _unshuffle(x, st, sh, sw)
+        res = res.reshape(b, -1, group, *res.shape[2:]).mean(dim=2)
+        return _unshuffle(self.conv(x, causal), st, sh, sw) + res
+
+
+class DownBlock(nn.Module):
+    """Causal resnets, then the downsampler (None where the block keeps its
+    resolution)."""
+
+    def __init__(self, resnets, downsampler=None):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        self.downsampler = downsampler
+
+
+class LtxVaeEncoder(nn.Module):
+    """LtxVideoEncoder3d.  ``norm_out`` gives the output RMSNorm an affine
+    weight (a checkpoint's ``encoder.norm_out.weight``; the JAX random init
+    has none)."""
+
+    def __init__(self, cfg: LtxVaeConfig, dtype=torch.bfloat16, norm_out: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        boc, lpb = list(cfg.block_out_channels), list(cfg.layers_per_block)
+        p_in = cfg.in_channels * cfg.patch_size ** 2 * cfg.patch_size_t
+        self.conv_in = Conv3d(p_in, boc[0], 3, dtype)
+        blocks = []
+        for i in range(len(boc) - 1):
+            ds = None
+            if cfg.spatiotemporal_scaling[i]:
+                st, sh, sw = self.stride(i)
+                ds = Downsampler(boc[i], boc[i + 1] // (st * sh * sw), dtype)
+            blocks.append(DownBlock([ResnetBlock(boc[i], dtype, False)
+                                     for _ in range(lpb[i])], ds))
+        self.down_blocks = nn.ModuleList(blocks)
+        self.mid_block = Block([ResnetBlock(boc[-1], dtype, False)
+                                for _ in range(max(lpb[-1] - 1, 0))], None)
+        self.norm_out = nn.Parameter(torch.empty(boc[-1], dtype=dtype)) if norm_out else None
+        self.conv_out = Conv3d(boc[-1], cfg.latent_channels + 1, 3, dtype)
+
+    def stride(self, i: int):
+        return _DOWNSAMPLE_STRIDES[self.cfg.downsample_types[i].lower()]
+
+    @property
+    def dtype(self):
+        return self.conv_in.weight.dtype
+
+    def forward(self, x):
+        """x [B, 3, F, H, W] in [-1, 1] -> moments [B, 2·latent, F', H', W']
+        in the encoder's dtype: the mean, then the one logvar channel
+        replicated."""
+        cfg, causal = self.cfg, self.cfg.is_causal
+        h = self.conv_in(_patchify(x, cfg.patch_size, cfg.patch_size_t), causal)
+        for i, blk in enumerate(self.down_blocks):
+            for rp in blk.resnets:
+                h = rp(h, None, causal)
+            if blk.downsampler is not None:
+                h = blk.downsampler(h, self.stride(i), cfg.block_out_channels[i + 1], causal)
+        for rp in self.mid_block.resnets:
+            h = rp(h, None, causal)
+        h = rms_norm(h, eps=1e-8, dim=1)
+        if self.norm_out is not None:
+            h = h * _ch(self.norm_out[None].to(h.dtype))
+        h = self.conv_out(silu(h), causal)
+        c = h.shape[1]
+        return torch.cat([h, h[:, c - 1:].expand(-1, c - 2, -1, -1, -1)], dim=1)
+
+
+def gaussian_split(moments):
+    """moments [B, 2C, ...] -> (mean, logvar)."""
+    c = moments.shape[1] // 2
+    return moments[:, :c], moments[:, c:]
+
+
+def gaussian_sample(moments, key):
+    """mean + exp(logvar / 2)·eps, eps ``jax.random.normal(key)`` drawn in
+    the moments' dtype (float32 or bfloat16: another stream each) by
+    ``utils/rng.normal`` on the host."""
+    from ...utils import rng as R
+
+    mean, logvar = gaussian_split(moments)
+    eps = torch.from_numpy(R.normal(key, mean.shape, mean.dtype)).to(mean.device, mean.dtype)
+    return mean + torch.exp(0.5 * logvar) * eps
+
+
+def normalize_latents(latents, mean, std, scaling_factor: float = 1.0):
+    """(x - mean)·scaling / std per channel, in the latents' dtype."""
+    c = latents.shape[1]
+    mean = mean.reshape(1, c, 1, 1, 1).to(latents.dtype)
+    std = std.reshape(1, c, 1, 1, 1).to(latents.dtype)
+    return (latents - mean) * scaling_factor / std
+
+
+# ---------------------------------------------------------------------------
 # mode policy + facade
 # ---------------------------------------------------------------------------
 
@@ -573,23 +730,244 @@ def select_decode_mode(cfg: LtxVaeConfig, z_shape, *, free_bytes: int | None = N
     return {"full_stream_chunks": t // need}
 
 
-def decode(decoder: LtxVaeDecoder, z, temb=None, *, tiling: bool = False,
-           tail_stream_chunks: int = 0, tail_stream_from_ups: bool = False,
-           full_stream_chunks: int = 0):
-    """Exact decode in the mode asked for (``select_decode_mode`` picks
-    one); dense by default.  Tiled decoding is approximate and not ported."""
-    if tiling:
-        raise NotImplementedError("tiled VAE decoding (approximate, blended "
-                                  "overlaps) is not ported")
-    if full_stream_chunks > 1:
-        return decoder_forward_fullstream(decoder, z, temb, n_chunks=full_stream_chunks)
-    if tail_stream_chunks <= 1:
-        return decoder(z, temb)
-    if tail_stream_from_ups:
-        return decoder_ups_tail_streamed(decoder, decoder_head_pre_ups_forward(decoder, z, temb),
-                                         temb, n_chunks=tail_stream_chunks)
-    return decoder_tail_streamed(decoder, decoder_head_forward(decoder, z, temb), temb,
-                                 n_chunks=tail_stream_chunks)
+def _decode_mode_fn(decoder: LtxVaeDecoder, tail_stream_chunks: int = 0,
+                    tail_stream_from_ups: bool = False, full_stream_chunks: int = 0):
+    """The exact decode of one (tile of) latents, ``(z, temb) -> video``, in
+    the mode asked for: dense, tail stream, ups-split stream or full
+    stream."""
+    def run(z, temb):
+        if full_stream_chunks > 1:
+            return decoder_forward_fullstream(decoder, z, temb, n_chunks=full_stream_chunks)
+        if tail_stream_chunks <= 1:
+            return decoder(z, temb)
+        if tail_stream_from_ups:
+            return decoder_ups_tail_streamed(
+                decoder, decoder_head_pre_ups_forward(decoder, z, temb), temb,
+                n_chunks=tail_stream_chunks)
+        return decoder_tail_streamed(decoder, decoder_head_forward(decoder, z, temb), temb,
+                                     n_chunks=tail_stream_chunks)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# tiling (approximate: overlapping tiles, seams blended with linear ramps)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TilingConfig:
+    """Tile sizes and strides in sample pixels and frames."""
+
+    tile_sample_min_height: int = 512
+    tile_sample_min_width: int = 512
+    tile_sample_min_num_frames: int = 16
+    tile_sample_stride_height: int = 384
+    tile_sample_stride_width: int = 384
+    tile_sample_stride_num_frames: int = 8
+
+
+def _blend(a, b, blend: int, dim: int):
+    """The first ``blend`` entries of ``b`` along ``dim`` ramp from ``a``'s
+    last ones: ``a[-blend + x]·(1 - x/blend) + b[x]·(x/blend)``."""
+    blend = min(blend, a.shape[dim], b.shape[dim])
+    if blend == 0:
+        return b
+    shape = [1] * b.ndim
+    shape[dim] = blend
+    w = (torch.arange(blend, dtype=torch.float32, device=b.device) / blend).to(b.dtype)
+    w = w.reshape(shape)
+    mixed = a.narrow(dim, a.shape[dim] - blend, blend) * (1.0 - w) + b.narrow(dim, 0, blend) * w
+    return torch.cat([mixed, b.narrow(dim, blend, b.shape[dim] - blend)], dim=dim)
+
+
+def blend_h(a, b, blend: int):
+    """Blend ``b``'s left columns from ``a``'s right ones."""
+    return _blend(a, b, blend, 4)
+
+
+def blend_v(a, b, blend: int):
+    """Blend ``b``'s top rows from ``a``'s bottom ones."""
+    return _blend(a, b, blend, 3)
+
+
+def blend_t(a, b, blend: int):
+    """Blend ``b``'s first frames from ``a``'s last ones."""
+    return _blend(a, b, blend, 2)
+
+
+def _stitch(rows, bh: int, bw: int, stride_h: int, stride_w: int):
+    """Blend each tile against its already-blended upper and left
+    neighbours, keep its top-left ``stride`` part, and concatenate."""
+    prev, out = [], []
+    for ri, row in enumerate(rows):
+        cur, kept = [], []
+        for cj, tile in enumerate(row):
+            if ri > 0:
+                tile = blend_v(prev[cj], tile, bh)
+            if cj > 0:
+                tile = blend_h(cur[cj - 1], tile, bw)
+            cur.append(tile)
+            kept.append(tile[:, :, :, :min(stride_h, tile.shape[3]),
+                             :min(stride_w, tile.shape[4])])
+        out.append(torch.cat(kept, dim=4))
+        prev = cur
+    return torch.cat(out, dim=3)
+
+
+def tiled_decode(decoder: LtxVaeDecoder, z, temb, tiling: TilingConfig, decode_fn=None):
+    """Spatial tiling: tiles of latents decoded one by one (``decode_fn``,
+    default dense), blended in sample space."""
+    decode_fn = decode_fn or _decode_mode_fn(decoder)
+    height, width = z.shape[3], z.shape[4]
+    sc = decoder.cfg.spatial_compression_ratio
+    lat_min_h, lat_min_w = tiling.tile_sample_min_height // sc, tiling.tile_sample_min_width // sc
+    lat_str_h = tiling.tile_sample_stride_height // sc
+    lat_str_w = tiling.tile_sample_stride_width // sc
+    rows = [[decode_fn(z[:, :, :, i:min(i + lat_min_h, height), j:min(j + lat_min_w, width)],
+                       temb)
+             for j in range(0, width, lat_str_w)] for i in range(0, height, lat_str_h)]
+    dec = _stitch(rows, tiling.tile_sample_min_height - tiling.tile_sample_stride_height,
+                  tiling.tile_sample_min_width - tiling.tile_sample_stride_width,
+                  tiling.tile_sample_stride_height, tiling.tile_sample_stride_width)
+    return dec[:, :, :, :height * sc, :width * sc]
+
+
+def tiled_encode(encoder: LtxVaeEncoder, x, tiling: TilingConfig):
+    """Spatial tiling of the encode: tiles of samples encoded one by one,
+    blended in latent space."""
+    height, width = x.shape[3], x.shape[4]
+    sc = encoder.cfg.spatial_compression_ratio
+    lat_min_h, lat_min_w = tiling.tile_sample_min_height // sc, tiling.tile_sample_min_width // sc
+    lat_str_h = tiling.tile_sample_stride_height // sc
+    lat_str_w = tiling.tile_sample_stride_width // sc
+    rows = [[encoder(x[:, :, :, i:min(i + tiling.tile_sample_min_height, height),
+                       j:min(j + tiling.tile_sample_min_width, width)])
+             for j in range(0, width, tiling.tile_sample_stride_width)]
+            for i in range(0, height, tiling.tile_sample_stride_height)]
+    enc = _stitch(rows, lat_min_h - lat_str_h, lat_min_w - lat_str_w, lat_str_h, lat_str_w)
+    return enc[:, :, :, :height // sc, :width // sc]
+
+
+def _join_t(tiles, blend: int, stride: int):
+    """Blend each tile's first frames from the previous (unblended) tile and
+    keep ``stride`` frames of it; the first tile keeps ``stride + 1``."""
+    out = []
+    for idx, tile in enumerate(tiles):
+        if idx > 0:
+            tile = blend_t(tiles[idx - 1], tile, blend)
+            out.append(tile[:, :, :min(stride, tile.shape[2])])
+        else:
+            out.append(tile[:, :, :min(stride + 1, tile.shape[2])])
+    return torch.cat(out, dim=2)
+
+
+def temporal_tiled_decode(decoder: LtxVaeDecoder, z, temb, tiling: TilingConfig,
+                          decode_fn=None):
+    """Temporal tiling: tiles of ``tile_sample_min_num_frames / tc + 1``
+    latent frames every ``stride / tc``, each spatially tiled when the frame
+    exceeds a tile; every tile but the first drops its last sample frame."""
+    num_frames, h, w = z.shape[2], z.shape[3], z.shape[4]
+    cfg = decoder.cfg
+    tc, sc = cfg.temporal_compression_ratio, cfg.spatial_compression_ratio
+    lat_min_t = tiling.tile_sample_min_num_frames // tc
+    lat_str_t = tiling.tile_sample_stride_num_frames // tc
+    spatial = w > tiling.tile_sample_min_width // sc or h > tiling.tile_sample_min_height // sc
+    fn = decode_fn or _decode_mode_fn(decoder)
+    tiles = []
+    for k, i in enumerate(range(0, num_frames, lat_str_t)):
+        tile = z[:, :, i:min(i + lat_min_t + 1, num_frames)]
+        dec = tiled_decode(decoder, tile, temb, tiling, decode_fn) if spatial else fn(tile, temb)
+        if k > 0 and dec.shape[2] > 1:
+            dec = dec[:, :, :-1]
+        tiles.append(dec)
+    dec = _join_t(tiles, tiling.tile_sample_min_num_frames - tiling.tile_sample_stride_num_frames,
+                  tiling.tile_sample_stride_num_frames)
+    return dec[:, :, :(num_frames - 1) * tc + 1]
+
+
+def temporal_tiled_encode(encoder: LtxVaeEncoder, x, tiling: TilingConfig):
+    """Temporal tiling of the encode: tiles of ``tile_sample_min_num_frames
+    + 1`` frames every stride, each spatially tiled when the frame exceeds a
+    tile; the first tile drops its first latent frame."""
+    num_frames, h, w = x.shape[2], x.shape[3], x.shape[4]
+    tc = encoder.cfg.temporal_compression_ratio
+    lat_min_t = tiling.tile_sample_min_num_frames // tc
+    lat_str_t = tiling.tile_sample_stride_num_frames // tc
+    spatial = h > tiling.tile_sample_min_height or w > tiling.tile_sample_min_width
+    tiles = []
+    for i in range(0, num_frames, tiling.tile_sample_stride_num_frames):
+        tile = x[:, :, i:min(i + tiling.tile_sample_min_num_frames + 1, num_frames)]
+        enc = tiled_encode(encoder, tile, tiling) if spatial else encoder(tile)
+        tiles.append(enc[:, :, 1:] if i == 0 else enc)
+    enc = _join_t(tiles, lat_min_t - lat_str_t, lat_str_t)
+    return enc[:, :, :(num_frames - 1) // tc + 1]
+
+
+def decode(decoder: LtxVaeDecoder, z, temb=None, *, tiling: Optional[TilingConfig] = None,
+           use_tiling: bool = False, use_framewise_decoding: bool = False,
+           use_slicing: bool = False, tail_stream_chunks: int = 0,
+           tail_stream_from_ups: bool = False, full_stream_chunks: int = 0):
+    """The decode facade, in the JAX dispatch order: with ``use_slicing``
+    each batch row alone; then temporal tiling when ``use_framewise_decoding``
+    and the latents have more frames than a tile; then spatial tiling when
+    ``use_tiling`` and a side exceeds a tile; else the direct decode.  Every
+    tile (and the direct call) runs the exact mode asked for (dense, or the
+    streamed mode the chunk keywords name; ``select_decode_mode`` picks
+    one).  Dense and untiled by default: the JAX facade defaults
+    ``use_tiling`` and ``use_framewise_decoding`` to True."""
+    tiling = tiling or TilingConfig()
+    fn = _decode_mode_fn(decoder, tail_stream_chunks, tail_stream_from_ups, full_stream_chunks)
+    if use_slicing and z.shape[0] > 1:
+        return torch.cat([_decode_tiled(decoder, z[i:i + 1],
+                                        None if temb is None else temb[i:i + 1], tiling,
+                                        use_tiling, use_framewise_decoding, fn)
+                          for i in range(z.shape[0])])
+    return _decode_tiled(decoder, z, temb, tiling, use_tiling, use_framewise_decoding, fn)
+
+
+def _decode_tiled(decoder, z, temb, tiling, use_tiling, use_framewise_decoding, fn):
+    t, h, w = z.shape[2:]
+    sc, tc = decoder.cfg.spatial_compression_ratio, decoder.cfg.temporal_compression_ratio
+    if use_framewise_decoding and t > tiling.tile_sample_min_num_frames // tc:
+        return temporal_tiled_decode(decoder, z, temb, tiling, fn)
+    if use_tiling and (w > tiling.tile_sample_min_width // sc
+                       or h > tiling.tile_sample_min_height // sc):
+        return tiled_decode(decoder, z, temb, tiling, fn)
+    return fn(z, temb)
+
+
+def encode(encoder: LtxVaeEncoder, x, *, tiling: Optional[TilingConfig] = None,
+           use_tiling: bool = True, use_framewise_encoding: bool = False):
+    """The encode facade, with the JAX one's defaults and order: temporal
+    tiling when ``use_framewise_encoding`` and x has more frames than a
+    tile, then spatial tiling when ``use_tiling`` and a side exceeds a tile,
+    else the direct encode.  x [B, 3, F, H, W] -> moments."""
+    tiling = tiling or TilingConfig()
+    t, h, w = x.shape[2:]
+    if use_framewise_encoding and t > tiling.tile_sample_min_num_frames:
+        return temporal_tiled_encode(encoder, x, tiling)
+    if use_tiling and (h > tiling.tile_sample_min_height or w > tiling.tile_sample_min_width):
+        return tiled_encode(encoder, x, tiling)
+    return encoder(x)
+
+
+def forward(encoder: LtxVaeEncoder, decoder: LtxVaeDecoder, sample, temb=None,
+            sample_posterior: bool = False, key=None, **kwargs):
+    """Encode, take the posterior's sample (``key``, a ``utils.rng`` key) or
+    its mean, decode.  ``kwargs`` go to ``encode`` (``tiling``,
+    ``use_tiling``, ``use_framewise_encoding``) and ``decode`` (``tiling``,
+    ``use_tiling``, ``use_framewise_decoding``, ``use_slicing``)."""
+    moments = encode(encoder, sample, **{k: v for k, v in kwargs.items() if k in (
+        "tiling", "use_tiling", "use_framewise_encoding")})
+    if sample_posterior:
+        if key is None:
+            raise ValueError("sample_posterior=True requires a PRNG key")
+        z = gaussian_sample(moments, key)
+    else:
+        z, _ = gaussian_split(moments)
+    return decode(decoder, z, temb, **{k: v for k, v in kwargs.items() if k in (
+        "tiling", "use_tiling", "use_framewise_decoding", "use_slicing")})
 
 
 def denormalize_latents(latents, mean, std, scaling_factor: float = 1.0):
@@ -625,4 +1003,25 @@ def init_random(cfg: LtxVaeConfig, device, dtype=torch.bfloat16,
     model.timestep_scale_multiplier.fill_(1000.0)
     model.latents_mean.zero_()
     model.latents_std.fill_(1.0)
+    return model.eval()
+
+
+def empty_encoder(cfg: LtxVaeConfig, device, dtype=torch.bfloat16,
+                  norm_out: bool = False) -> LtxVaeEncoder:
+    with torch.device("meta"):
+        model = LtxVaeEncoder(cfg, dtype, norm_out)
+    return model.to_empty(device=device)
+
+
+@torch.no_grad()
+def init_random_encoder(cfg: LtxVaeConfig, device, dtype=torch.bfloat16,
+                        generator: torch.Generator | None = None) -> LtxVaeEncoder:
+    """Random-init encoder with the JAX init's std values: convs N(0, 0.05),
+    biases 0 (and no ``norm_out``, as the JAX init)."""
+    model = empty_encoder(cfg, device, dtype)
+    for name, p in model.named_parameters():
+        if name.endswith(".bias"):
+            p.zero_()
+        else:
+            p.normal_(0.0, 0.05, generator=generator)
     return model.eval()

@@ -3,8 +3,8 @@
 - ``Pcg32``: the deterministic PCG32 RNG with Box-Muller Gaussian sampling,
   the port's own copy of ``candle_video_tpu/utils/rng.py``.
 - ``prng_key``, ``split`` and ``normal``: ``jax.random.PRNGKey``,
-  ``jax.random.split`` and ``jax.random.normal`` (float32) in the form the
-  JAX package draws them (the default threefry2x32 generator with
+  ``jax.random.split`` and ``jax.random.normal`` (float32 or bfloat16) in
+  the form the JAX package draws them (the default threefry2x32 generator with
   ``jax_threefry_partitionable`` on), so that one seed gives the JAX
   package's decode noise, stochastic step noise and SVD noise.  Keys are
   ``(hi, lo)`` pairs of ``np.uint32``; seeds of 2**32 and above differ from
@@ -235,16 +235,52 @@ def _erfinv_f32(x):
     return np.where(small, ps, pl) * x
 
 
-def normal(key, shape) -> np.ndarray:
-    """``jax.random.normal(key, shape, float32)``: 32 random bits per value
-    (the two threefry words of the flat index, xor-ed), a uniform in
-    [nextafter(-1, 0), 1) from the top 23 bits, then ``sqrt(2)·erfinv``.
-    Agrees with JAX to a few float32 ulp (the erfinv's rounding)."""
-    shape = tuple(int(s) for s in shape)
-    idx = np.arange(int(np.prod(shape)), dtype=np.uint64)
+def round_bf16(x) -> np.ndarray:
+    """float32 values rounded to the nearest bfloat16 (ties to even), kept
+    as float32: NumPy has no bfloat16, and these convert to
+    ``torch.bfloat16`` exactly."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    up = ((bits >> _U32(16)) & _U32(1)) + _U32(0x7FFF)
+    with np.errstate(over="ignore"):
+        out = (bits + up) & _U32(0xFFFF0000)
+    return np.where(np.isnan(bits.view(np.float32)), bits | _U32(0x00400000),
+                    out).view(np.float32)
+
+
+def _bits(key, n: int):
+    """The 32 random bits of each of ``n`` values: the two threefry words of
+    the flat index, xor-ed."""
+    idx = np.arange(n, dtype=np.uint64)
     hi, lo = _threefry2x32(key, (idx >> np.uint64(32)).astype(np.uint32),
                            (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
-    bits = hi ^ lo
+    return hi ^ lo
+
+
+def normal(key, shape, dtype=np.float32) -> np.ndarray:
+    """``jax.random.normal(key, shape, dtype)`` for float32 and bfloat16
+    (``dtype`` a NumPy dtype, ``"bfloat16"`` or ``torch.bfloat16``).
+
+    float32: a uniform in [nextafter(-1, 0), 1) from the top 23 of the 32
+    bits, then ``sqrt(2)·erfinv``; agrees with JAX to a few float32 ulp (the
+    erfinv's rounding).  bfloat16 is another stream, not the float32 draw
+    rounded: the uniform takes 7 mantissa bits from the low byte of the 32
+    bits, each step rounds to bfloat16 (the range ``1 - nextafter(-1, 0)``
+    to 2), the erfinv runs in float32 on the bfloat16 uniform and rounds,
+    and the product with bfloat16 ``sqrt(2)`` rounds once more.  Returned
+    as float32 holding bfloat16 values."""
+    shape = tuple(int(s) for s in shape)
+    name = getattr(dtype, "__name__", None) or str(dtype).removeprefix("torch.")
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"normal: dtype {dtype} is not float32 or bfloat16")
+    bits = _bits(key, int(np.prod(shape)))
+    if name == "bfloat16":
+        f = np.float32
+        mant = ((bits & _U32(0xFF)) >> _U32(1)) | _U32(0x3F80)
+        u01 = (mant << _U32(16)).view(np.float32) - f(1.0)
+        lo_f = f(-0.99609375)  # nextafter(-1, 0) in bfloat16
+        u = np.maximum(lo_f, round_bf16(round_bf16(u01 * f(2.0)) + lo_f))
+        z = round_bf16(f(1.4140625) * round_bf16(_erfinv_f32(u)))  # bfloat16 sqrt(2)
+        return z.reshape(shape)
     u01 = ((bits >> _U32(9)) | _U32(0x3F800000)).view(np.float32) - np.float32(1.0)
     lo_f = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = np.maximum(lo_f, u01 * (np.float32(1.0) - lo_f) + lo_f)

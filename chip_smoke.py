@@ -12,6 +12,14 @@ counts of every request:
   per-stage times and one more warm request timed end to end only; then the
   last request's latents decoded again with every eligible decoder conv on
   K8 (``CVT_CONV3D_IMPL=igemm``) against the default cuDNN decode;
+- the same preset's image-to-video request at 512x768x97 (a random image as
+  a hard anchor on frame 0 through the VAE encoder, every token at its own
+  timestep through the DiT's AdaLN): a warm-up and a timed request, the
+  anchor's latent frame held bit for bit, and a two-anchor request (frame
+  0, and the last latent frame at strength 0.9); then a 97-frame encode on
+  cuDNN and with every eligible encoder conv on K8, and the full-size tiled
+  decode against the dense one; a tiny image-to-video slice and tiny tiled
+  encode and decode against the CPU before them;
 - the same request on the W8A8 DiT tier (``quantize_transformer_w8a8``:
   every block linear on K7) against the bf16 request;
 - the same request through the sequence-parallel path in a ring of one
@@ -26,8 +34,9 @@ counts of every request:
   VAE decode with the streamed tail in 6 chunks): a cold and a warm request;
 - the 13B W8A16 tier (int8 T5 → 13B DiT with int8 block linears): one
   request;
-- a full-size official-layout 2B checkpoint written by the port's writer
-  and run through the CLI (``--weights-path``) in bf16, ``--dit-int8`` and
+- a full-size official-layout 2B checkpoint (DiT, VAE decoder and
+  encoder) written by the port's writer and run through the CLI
+  (``--weights-path``) in bf16, in bf16 with ``--image``, ``--dit-int8`` and
   ``--dit-int4`` against the in-memory pipeline on the same weights, and a
   full-width T5 HF directory of 2 of the 24 blocks;
 - SVD image-to-video at its published request, 576x1024x14 with CFG (CLIP
@@ -1227,9 +1236,13 @@ def check_k8(card):
     """K8 against its plain version at the 2B decoder's four widths at 97
     frames (the tail, up block 1, up block 0, the mid block, whose plan
     splits the K-steps), non-causal as the 0.9.8 decoder runs and causal, a
-    ``time_pad="valid"`` case as the streamed decode calls it, and B = 2 on
-    a 13x20 frame that the plan's rectangle does not divide; input and
-    output channels last.  ``ms`` is the wrapper call, as for every kernel
+    ``time_pad="valid"`` case as the streamed decode calls it, B = 2 on a
+    13x20 frame that the plan's rectangle does not divide, and the
+    encoder's new shapes, causal: the downsamplers' convs that narrow
+    (512 -> 128 at 50x64x96, 1024 -> 256 at 26x32x48), the 2048-channel mid
+    block (split-K) and a single frame (T = 1, both halo frames clamped to
+    frame 0, as the image anchor's encode runs); input and output channels
+    last.  ``ms`` is the wrapper call, as for every kernel
     (it packs each weight once and keeps the copy); ``kernel_ms`` the kernel
     alone on a pre-packed weight; both beside the plain version and cuDNN's bf16 ``F.conv3d`` on the
     same time-padded channels-first input (the default route).  Then the
@@ -1240,22 +1253,28 @@ def check_k8(card):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(9)
     rows, inputs = [], {}
-    # (label, B, C (= O), T, H, W, causal, time_pad): the tail first
-    cases = [("tail 128ch 97x128x192", 1, 128, 97, 128, 192, False, "edge"),
-             ("tail 128ch 97x128x192 causal", 1, 128, 97, 128, 192, True, "edge"),
-             ("up1 256ch 49x64x96", 1, 256, 49, 64, 96, False, "edge"),
-             ("up1 256ch 49x64x96 causal", 1, 256, 49, 64, 96, True, "edge"),
-             ("up0 512ch 25x32x48", 1, 512, 25, 32, 48, False, "edge"),
-             ("up0 512ch 25x32x48 causal", 1, 512, 25, 32, 48, True, "edge"),
-             ("mid 1024ch 13x16x24 split-K", 1, 1024, 13, 16, 24, False, "edge"),
-             ("mid 1024ch 13x16x24 causal split-K", 1, 1024, 13, 16, 24, True, "edge"),
-             ("tail stream chunk 128ch 26x128x192 valid", 1, 128, 26, 128, 192, False, "valid"),
-             ("ragged B=2 128ch 5x13x20 causal", 2, 128, 5, 13, 20, True, "edge")]
-    for label, b, c, t, h, w, causal, time_pad in cases:
+    # (label, B, C, O, T, H, W, causal, time_pad): the tail first
+    cases = [("tail 128ch 97x128x192", 1, 128, 128, 97, 128, 192, False, "edge"),
+             ("tail 128ch 97x128x192 causal", 1, 128, 128, 97, 128, 192, True, "edge"),
+             ("up1 256ch 49x64x96", 1, 256, 256, 49, 64, 96, False, "edge"),
+             ("up1 256ch 49x64x96 causal", 1, 256, 256, 49, 64, 96, True, "edge"),
+             ("up0 512ch 25x32x48", 1, 512, 512, 25, 32, 48, False, "edge"),
+             ("up0 512ch 25x32x48 causal", 1, 512, 512, 25, 32, 48, True, "edge"),
+             ("mid 1024ch 13x16x24 split-K", 1, 1024, 1024, 13, 16, 24, False, "edge"),
+             ("mid 1024ch 13x16x24 causal split-K", 1, 1024, 1024, 13, 16, 24, True, "edge"),
+             ("tail stream chunk 128ch 26x128x192 valid", 1, 128, 128, 26, 128, 192, False,
+              "valid"),
+             ("ragged B=2 128ch 5x13x20 causal", 2, 128, 128, 5, 13, 20, True, "edge"),
+             ("enc ds2 512->128 50x64x96 causal", 1, 512, 128, 50, 64, 96, True, "edge"),
+             ("enc ds3 1024->256 26x32x48 causal", 1, 1024, 256, 26, 32, 48, True, "edge"),
+             ("enc mid 2048ch 13x16x24 causal split-K", 1, 2048, 2048, 13, 16, 24, True,
+              "edge"),
+             ("enc 128ch T=1 1x128x192 causal", 1, 128, 128, 1, 128, 192, True, "edge")]
+    for label, b, c, o, t, h, w, causal, time_pad in cases:
         x = torch.randn(b, c, t, h, w, generator=g, device=dev).bfloat16().contiguous(
             memory_format=torch.channels_last_3d)
-        wt = (torch.randn(c, c, 3, 3, 3, generator=g, device=dev) * (27 * c) ** -0.5).bfloat16()
-        bias = (torch.randn(c, generator=g, device=dev) * 0.1).bfloat16()
+        wt = (torch.randn(o, c, 3, 3, 3, generator=g, device=dev) * (27 * c) ** -0.5).bfloat16()
+        bias = (torch.randn(o, generator=g, device=dev) * 0.1).bfloat16()
         kw = dict(causal=causal, time_pad=time_pad)
         got = K8.conv3d_igemm(x, wt, bias, **kw)
         want = K8.conv3d_igemm_plain(x, wt, bias, **kw)
@@ -1274,9 +1293,10 @@ def check_k8(card):
             xp = replicate_pad_time(xp, 3, causal)
         library_ms = cuda_ms(lambda: F.conv3d(xp, wt, bias, padding=(0, 1, 1)), iters=5)
         t_out = got.shape[2]
-        flops = 2.0 * b * t_out * h * w * c * c * 27
-        nbytes = 2 * b * (c * t * h * w + c * t_out * h * w) + 2 * 27 * c * c + 4 * c
-        row = dict(label=label, b=b, c=c, t=t, h=h, w=w, causal=causal, time_pad=time_pad,
+        flops = 2.0 * b * t_out * h * w * c * o * 27
+        nbytes = 2 * b * (c * t * h * w + o * t_out * h * w) + 2 * 27 * c * o + 4 * o
+        row = dict(label=label, b=b, c=c, o=o, t=t, h=h, w=w, causal=causal,
+                   time_pad=time_pad,
                    ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                    bf16_ulps=ulps, plan={k: plan[k] for k in ("bh", "bw", "bn", "split",
                                                               "ctas", "waves")},
@@ -1292,7 +1312,7 @@ def check_k8(card):
         if not (err["scaled"] <= K8_TOL["scaled"] and err["rel"] <= K8_TOL["rel"]):
             raise AssertionError(f"K8 {label} disagrees with its plain version: {row}")
         rows.append(row)
-        if t <= 25:  # the broken copy runs on the small cases
+        if t <= 25 or label.startswith("enc"):  # the broken copy: small and encoder cases
             inputs[label] = (x, wt, bias, kw, want)
     RESULTS["k8"] = rows
 
@@ -1432,8 +1452,12 @@ def run_request(pipe, name, prompt, seed, want, card, staged=True, tag="e2e",
                    denoise_step_ms=[1e3 * s for s in steps],
                    denoise_step_mean_ms=1e3 * sum(steps) / len(steps),
                    vae_decode_s=times["vae_decode"], decode_mode=times["decode_mode"])
+        if "anchor_encode" in times:
+            row["anchor_encode_s"] = times["anchor_encode"]
         stages = (f" t5={row['t5_encode_s'] * 1e3:.1f} ms "
-                  f"denoise step mean={row['denoise_step_mean_ms']:.1f} ms "
+                  + (f"anchor encode={row['anchor_encode_s'] * 1e3:.1f} ms "
+                     if "anchor_encode_s" in row else "")
+                  + f"denoise step mean={row['denoise_step_mean_ms']:.1f} ms "
                   f"(steps {', '.join(f'{x:.1f}' for x in row['denoise_step_ms'])}) "
                   f"vae_decode={row['vae_decode_s']:.3f} s "
                   f"mode={ {k: v for k, v in row['decode_mode'].items() if v} or 'dense'}")
@@ -1568,6 +1592,303 @@ def check_igemm_decode(card, decoder, z, temb):
         raise AssertionError(f"the K8 decode disagrees with the cuDNN decode: {row}")
     RESULTS["decode_k8"] = row
     return runs["igemm"][-1]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# image-to-video: the VAE encoder, per-token timesteps, tiling
+# ---------------------------------------------------------------------------
+
+# The tiny slices' tiling: 32x32-pixel tiles every 24, 8 frames every 4, so
+# the 64x96x17 sample (8x12x5 latents) spans 3x4 tiles in space and 4 in time.
+TINY_TILING = dict(tile_sample_min_height=32, tile_sample_min_width=32,
+                   tile_sample_min_num_frames=8, tile_sample_stride_height=24,
+                   tile_sample_stride_width=24, tile_sample_stride_num_frames=4)
+# The tiled encode's moments, card bf16 against the CPU f32 run, rel in
+# norm: the CPU's own bf16 run reads 8.8e-3.
+TILED_ENCODE_REL = 2e-2
+
+
+@contextlib.contextmanager
+def kept_anchors():
+    """A list that receives each anchor's normalised latents [B, C, 1, h, w]
+    as ``generate`` makes them, inside the block."""
+    from candle_video_tpu_torch.models.ltx_video import pipeline as P
+
+    anchors, make = [], P._anchor_latents
+
+    def keep(*a, **k):
+        anchors.append(make(*a, **k))
+        return anchors[-1]
+
+    P._anchor_latents = keep
+    try:
+        yield anchors
+    finally:
+        P._anchor_latents = make
+
+
+def tiny_i2v_config():
+    """The tiny t2v slice's DiT and decoder, and an encoder of the same
+    compression (patch 2, two spatiotemporal downsamplers: 8x space, 4x
+    time)."""
+    from candle_video_tpu_torch.models.ltx_video import configs as C
+
+    preset = C.get_config_by_version("0.9.8-2b-distilled")
+    return C.LtxFullConfig(
+        inference=preset.inference,
+        transformer=C.LtxTransformerConfig(in_channels=8, out_channels=8,
+                                           num_attention_heads=4, num_layers=2,
+                                           caption_channels=64),
+        vae=C.LtxVaeConfig(latent_channels=8, block_out_channels=(16, 32, 64),
+                           layers_per_block=(1, 1, 2), spatiotemporal_scaling=(True, True),
+                           downsample_types=("spatiotemporal", "spatiotemporal"),
+                           decoder_block_out_channels=(16, 32),
+                           decoder_spatiotemporal_scaling=(True, True),
+                           decoder_layers_per_block=(1, 1, 1),
+                           decoder_upsample_residual=(True, True),
+                           decoder_upsample_factor=(2, 2), patch_size=2,
+                           spatial_compression_ratio=8, temporal_compression_ratio=4),
+        scheduler=preset.scheduler)
+
+
+def check_i2v_slice(card):
+    """The tiny image-to-video slice on the card (kernels, bf16) against the
+    same weights and image on the CPU (plain versions, f32): an image anchor
+    on frame 0 through the encoder, the per-token AdaLN and the per-token
+    steps (K1 7 steps x 2 layers), then the video; the anchor's frame after
+    the loop equal to its normalised latents.  The anchor is taken at its posterior mean
+    (``"argmax"``): a bf16 encoder draws its posterior sample from another
+    stream than an f32 one (``utils/rng.normal``), so ``"sample"`` would
+    compare two draws.  Then a tiled encode and a tiled decode over several
+    tiles in space and time against the CPU's."""
+    from candle_video_tpu_torch.models.ltx_video import configs as C
+    from candle_video_tpu_torch.models.ltx_video import pipeline as P
+    from candle_video_tpu_torch.models.ltx_video import t5 as T5
+    from candle_video_tpu_torch.models.ltx_video import transformer as TF
+    from candle_video_tpu_torch.models.ltx_video import vae as V
+    from candle_video_tpu_torch.ops.kernels import _build
+    from candle_video_tpu_torch.utils.tokenizer import MockTokenizer
+
+    cfg = tiny_i2v_config()
+    t5cfg = C.T5Config(vocab_size=128, d_model=64, d_kv=16, d_ff=128, num_layers=2,
+                       num_heads=4)
+    g = torch.Generator().manual_seed(3)
+    tok = MockTokenizer(vocab_size=128, model_max_length=32)
+    cpu = P.LtxPipeline(cfg, TF.init_random(cfg.transformer, "cpu", torch.float32, g),
+                        V.init_random(cfg.vae, "cpu", torch.float32, g),
+                        T5.init_random_int8(t5cfg, "cpu", torch.float32, 0.01), t5cfg, tok,
+                        vae_encoder=V.init_random_encoder(cfg.vae, "cpu", torch.float32, g))
+    gpu = P.LtxPipeline(cfg, copy.deepcopy(cpu.transformer).to("cuda", torch.bfloat16),
+                        copy.deepcopy(cpu.vae).to("cuda", torch.bfloat16),
+                        T5.init_random_int8(t5cfg, "cuda", torch.bfloat16, 0.01), t5cfg, tok,
+                        vae_encoder=copy.deepcopy(cpu.vae_encoder).to("cuda", torch.bfloat16))
+    image = torch.rand(1, 3, 64, 96, generator=torch.Generator().manual_seed(4)) * 2 - 1
+    kw = dict(prompt="a red fox in the snow", height=64, width=96, num_frames=9, seed=7,
+              max_sequence_length=32, decode_noise=torch.zeros(1, 8, 3, 8, 12), image=image,
+              conditioning_sample_mode="argmax")
+    lat_c = P.generate(cpu, output_type="latent", **kw)
+    _build.reset_launches()
+    with kept_anchors() as anchors:
+        lat_g = P.generate(gpu, output_type="latent", **kw).cpu()
+    launches = dict(_build.LAUNCHES)
+    want_k1 = cfg.inference.num_inference_steps * cfg.transformer.num_layers
+    if launches.get("flash_attention_packed", 0) != want_k1:
+        raise AssertionError(f"tiny i2v slice launches {launches}, want {want_k1} K1")
+    vid_c = P.generate(cpu, **kw)
+    vid_g = P.generate(gpu, **kw).cpu()
+    rel = ((lat_g - lat_c).norm() / lat_c.norm()).item()
+    db = psnr(vid_g, vid_c)
+    held = torch.equal(lat_g[:, :8 * 12], P.pack_latents(anchors[0], 1, 1).cpu())
+    log(f"[i2v-slice] tiny i2v (image anchor on frame 0, argmax), card bf16 kernels vs CPU "
+        f"f32 plain: latent rel={rel:.3e} video PSNR={db:.2f} dB, frame 0 equal to the "
+        f"normalised anchor after the loop: {held}; launches={launches} | {card}")
+    if not (rel <= SLICE_TOL["latent_rel"] and db >= SLICE_TOL["video_psnr"] and held):
+        raise AssertionError(f"tiny i2v disagrees with the CPU reference: rel={rel} "
+                             f"psnr={db} held={held}")
+
+    tiling = V.TilingConfig(**TINY_TILING)
+    x = torch.rand(1, 3, 17, 64, 96, generator=torch.Generator().manual_seed(5)) * 2 - 1
+    enc_kw = dict(tiling=tiling, use_tiling=True, use_framewise_encoding=True)
+    enc_c = V.encode(cpu.vae_encoder, x, **enc_kw)
+    enc_g = V.encode(gpu.vae_encoder, x.cuda(), **enc_kw).float().cpu()
+    enc_rel = ((enc_g - enc_c).norm() / enc_c.norm()).item()
+    z = torch.randn(1, 8, 5, 8, 12, generator=torch.Generator().manual_seed(6))
+    temb = torch.tensor([0.05])
+    dec_kw = dict(tiling=tiling, use_tiling=True, use_framewise_decoding=True)
+    dec_c = P.postprocess_video(V.decode(cpu.vae, z, temb, **dec_kw))
+    dec_g = P.postprocess_video(V.decode(gpu.vae, z.cuda(), temb.cuda(), **dec_kw)).cpu()
+    dec_db = psnr(dec_g, dec_c)
+    log(f"[i2v-slice] tiny tiled encode (17x64x96, 4 temporal tiles of 3x4): moments "
+        f"{tuple(enc_g.shape)} rel={enc_rel:.3e}; tiled decode (5x8x12 latents): video "
+        f"{tuple(dec_g.shape)} PSNR={dec_db:.2f} dB, card bf16 vs CPU f32 | {card}")
+    if not (enc_rel <= TILED_ENCODE_REL and dec_db >= SLICE_TOL["video_psnr"]
+            and tuple(enc_g.shape) == (1, 16, 5, 8, 12)
+            and tuple(dec_g.shape) == (1, 3, 17, 64, 96)):
+        raise AssertionError(f"tiny tiled encode/decode disagree with the CPU: "
+                             f"rel={enc_rel} psnr={dec_db}")
+    RESULTS["i2v_slice"] = dict(latent_rel=rel, video_psnr=db, launches=launches,
+                                tiled_encode_rel=enc_rel, tiled_decode_psnr=dec_db)
+
+
+def encode_peak(encoder, x):
+    """A dense encode -> (moments, seconds, peak bytes above what was
+    allocated before it)."""
+    from candle_video_tpu_torch.models.ltx_video import vae as V
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    moments = V.encode(encoder, x, use_tiling=False)
+    torch.cuda.synchronize()
+    return moments, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def range_psnr(got, want) -> float:
+    """PSNR in dB over the reference's peak-to-peak range (the video's
+    [0, 255] for moments, which have no fixed range)."""
+    mse = (got.double() - want.double()).square().mean().item()
+    span = (want.max() - want.min()).double().item()
+    return float("inf") if mse == 0 else 10 * math.log10(span ** 2 / mse)
+
+
+# The 97-frame encode on K8 against the cuDNN encode of the same video: the
+# igemm decode's gate.  Prediction before the first run: 45-60 dB.
+IGEMM_ENCODE_PSNR_DB = 40.0
+
+
+def check_igemm_encode(card, encoder):
+    """The dense 97-frame encode of a random 1x3x97x512x768 bf16 video in
+    [-1, 1], cuDNN, then every eligible conv on K8 (exactly 41 launches;
+    conv_in 48 -> 128, the first downsampler's 128 -> 64 and conv_out 2048 ->
+    129 stay on cuDNN), in turns (cuDNN, K8, K8, cuDNN): times, peaks, the
+    channels-last copies before K8, and the moments' PSNR against cuDNN's."""
+    from candle_video_tpu_torch.ops.kernels import _build
+    from candle_video_tpu_torch.ops.kernels import conv3d_igemm as K8
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = (torch.rand(1, 3, 97, 512, 768, generator=g, device="cuda") * 2 - 1).bfloat16()
+    runs = {"cudnn": [], "igemm": []}
+    moments = {}
+    for impl in ("xla", "igemm", "igemm", "xla"):
+        name = "cudnn" if impl == "xla" else "igemm"
+        _build.reset_launches()
+        K8.RELAYOUT.clear()
+        with conv_impl(impl):
+            m, sec, peak = encode_peak(encoder, x)
+        launches, relayout = dict(_build.LAUNCHES), dict(K8.RELAYOUT)
+        want = 41 if name == "igemm" else 0
+        if launches.get("conv3d_igemm", 0) != want:
+            raise AssertionError(f"{name} encode: launch counts {launches}, want {want} K8")
+        runs[name].append(dict(seconds=sec, peak_gib=peak / 2**30, launches=launches,
+                               relayout_copies=relayout.get("copies", 0),
+                               relayout_gib=relayout.get("bytes", 0) / 2**30))
+        moments[name] = m.float().cpu()
+        del m
+    if tuple(moments["igemm"].shape) != (1, 256, 13, 16, 24):
+        raise AssertionError(f"encode moments {tuple(moments['igemm'].shape)}")
+    db = range_psnr(moments["igemm"], moments["cudnn"])
+    rel = ((moments["igemm"] - moments["cudnn"]).norm() / moments["cudnn"].norm()).item()
+    row = dict(runs=runs, psnr_db=db, rel=rel)
+    log(f"[encode-k8] dense 97f encode of 1x3x97x512x768 bf16: cuDNN "
+        + ", ".join(f"{r['seconds']:.4f} s" for r in runs["cudnn"])
+        + f" peak {runs['cudnn'][0]['peak_gib']:.2f} GiB; K8 "
+        + ", ".join(f"{r['seconds']:.4f} s" for r in runs["igemm"])
+        + f" peak {runs['igemm'][0]['peak_gib']:.2f} GiB, {runs['igemm'][0]['launches']}; "
+        f"moments PSNR vs cuDNN {db:.2f} dB (rel {rel:.3e}); channels-last copies before "
+        f"K8: {runs['igemm'][0]['relayout_copies']} ({runs['igemm'][0]['relayout_gib']:.2f} "
+        f"GiB) | {card}")
+    if not (db >= IGEMM_ENCODE_PSNR_DB and torch.isfinite(moments["igemm"]).all()):
+        raise AssertionError(f"the K8 encode disagrees with the cuDNN encode: {row}")
+    RESULTS["encode_k8"] = row
+    return runs["igemm"][-1]["launches"]
+
+
+def check_tiled_decode(card, decoder, z, temb):
+    """The full-size tiled decode (``use_tiling`` and
+    ``use_framewise_decoding`` with the default ``TilingConfig``: 13
+    temporal tiles of 2x2 spatial tiles at 13x16x24 latents) against the
+    dense decode of the same latents: shape, finite, its peak below the
+    dense decode's; time and PSNR (approximate by design: printed, not
+    held)."""
+    dense, dense_s, dense_peak = decode_peak(decoder, z, temb)
+    tiled, tiled_s, tiled_peak = decode_peak(decoder, z, temb, use_tiling=True,
+                                             use_framewise_decoding=True)
+    db = psnr(tiled, dense)
+    row = dict(dense_s=dense_s, dense_peak_gib=dense_peak / 2**30, tiled_s=tiled_s,
+               tiled_peak_gib=tiled_peak / 2**30, psnr_db=db)
+    log(f"[tiled-decode] {tuple(z.shape)} latents: dense {dense_s:.4f} s peak "
+        f"{row['dense_peak_gib']:.2f} GiB; tiled (13 temporal x 2x2 spatial tiles) "
+        f"{tiled_s:.4f} s peak {row['tiled_peak_gib']:.2f} GiB; PSNR tiled vs dense "
+        f"{db:.2f} dB (blended seams: not held) | {card}")
+    if tiled.shape != dense.shape or not torch.isfinite(tiled).all():
+        raise AssertionError(f"tiled decode: shape {tuple(tiled.shape)}, dense "
+                             f"{tuple(dense.shape)}")
+    if not tiled_peak < dense_peak:
+        raise AssertionError(f"tiled decode peak {tiled_peak} not below dense {dense_peak}")
+    RESULTS["tiled_decode"] = row
+
+
+def run_i2v(card):
+    """The 2B 512x768x97 image-to-video request: random weights, one random
+    image in [-1, 1] as a hard anchor on frame 0, the prompt through the
+    int8 T5: a warm-up and a timed request (exactly 196 K1 and 168 K3 each;
+    the anchor's frame after the loop bit-equal to its normalised latents;
+    stage times and peak); then a two-anchor request (frame 0 at strength 1,
+    the last latent frame at 0.9: finite, frame 0 held exactly).  Then the
+    97-frame encode on cuDNN and on K8, and the tiled decode of the timed
+    request's latents against their dense decode."""
+    from candle_video_tpu_torch.models.ltx_video import pipeline as P
+    from candle_video_tpu_torch.models.ltx_video import vae as V
+
+    pipe, _ = build_pipeline("i2v", card, "0.9.8-2b-distilled")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    image = torch.rand(1, 3, 512, 768, generator=g, device="cuda") * 2 - 1
+    want = {"flash_attention_packed": 196, "w8_matmul": 168, "conv3d_igemm": 0}
+    frame0 = 16 * 24
+    finals, decoded = [], {}
+    decode = V.decode
+
+    def keep_latents(decoder, z, temb=None, **kw):
+        decoded.update(z=z, temb=temb)
+        return decode(decoder, z, temb, **kw)
+
+    def held(anchor):
+        return torch.equal(finals[-1][:, :frame0], P.pack_latents(anchor, 1, 1))
+
+    def keep_final(k, n, lat):
+        finals[:] = [lat]
+
+    rows = []
+    V.decode = keep_latents
+    try:
+        with kept_anchors() as anchors:
+            for i, name in enumerate(("warm-up", "timed")):
+                row, _ = run_request(pipe, name, "A kite over a windy beach", 50 + i, want,
+                                     card, tag="i2v", image=image, step_callback=keep_final)
+                row["anchor_held"] = held(anchors[-1])
+                rows.append(row)
+                if not row["anchor_held"]:
+                    raise AssertionError(f"i2v {name}: the conditioned frame moved")
+            two = [P.ConditioningItem(image=image, frame_index=0),
+                   P.ConditioningItem(image=image.flip(-1), frame_index=12, strength=0.9)]
+            row, _ = run_request(pipe, "two anchors", "A kite over a windy beach", 52, want,
+                                 card, tag="i2v", conditioning=two, step_callback=keep_final)
+            row["anchor_held"] = held(anchors[-2])
+            if not (row["anchor_held"] and torch.isfinite(finals[-1]).all()):
+                raise AssertionError("i2v two anchors: frame 0 moved or the latents are not "
+                                     "finite")
+            rows.append(row)
+    finally:
+        V.decode = decode
+    log(f"[i2v] the anchor's latent frame after the loop equals its normalised latents: "
+        f"{[r['anchor_held'] for r in rows]} | {card}")
+    RESULTS["i2v"] = rows
+    finals.clear()
+    launches_k8 = check_igemm_encode(card, pipe.vae_encoder)
+    check_tiled_decode(card, pipe.vae, decoded["z"], decoded["temb"])
+    release(pipe)
+    return rows[1]["launches"], launches_k8
 
 
 # The W8A8 request's final latents against the bf16 request's (same seed,
@@ -2029,16 +2350,6 @@ def run_svd(card, steps: int = 25):
 
 CKPT_SEED = 77
 CKPT_PROMPT = "A paper boat drifting down a rain-filled gutter"
-# the VAE encoder's tensors written beside the decoder, at the shapes of the
-# full 0.9.8 VAE (latent 128, patch 4, widths 128 .. 2048): conv_in, the
-# first down block's four resnets and conv_out; the loader skips them
-CKPT_ENCODER = dict(
-    [("encoder.conv_in.conv.weight", (128, 48, 3, 3, 3)), ("encoder.conv_in.conv.bias", (128,)),
-     ("encoder.conv_out.conv.weight", (129, 2048, 3, 3, 3)),
-     ("encoder.conv_out.conv.bias", (129,))]
-    + [(f"encoder.down_blocks.0.resnets.{j}.{c}.conv.{leaf}",
-        (128, 128, 3, 3, 3) if leaf == "weight" else (128,))
-       for j in range(4) for c in ("conv1", "conv2") for leaf in ("weight", "bias")])
 
 
 def quantized_payloads(model) -> dict:
@@ -2069,19 +2380,17 @@ def frames_diff(a, b) -> int:
 
 
 def write_official_2b(pipe, path) -> dict:
-    """The pipeline's DiT and VAE decoder (and ``CKPT_ENCODER``) as one
+    """The pipeline's DiT, VAE decoder and VAE encoder as one
     official-layout file, written by the port's writer; returns its size."""
     from candle_video_tpu_torch.models.ltx_video import loader as L
     from candle_video_tpu_torch.models.ltx_video import weight_format as W
 
-    g = torch.Generator(device="cuda").manual_seed(5)
     tensors = {W.officialize_transformer_key(k): v
                for k, v in L.transformer_state_dict(pipe.transformer).items()}
     tensors.update({W.officialize_vae_key(k): v
                     for k, v in L.vae_decoder_state_dict(pipe.vae).items()})
-    tensors.update({W.officialize_vae_key(k): (torch.randn(shape, generator=g, device="cuda")
-                                               * 0.02).bfloat16()
-                    for k, shape in CKPT_ENCODER.items()})
+    tensors.update({W.officialize_vae_key(k): v
+                    for k, v in L.vae_encoder_state_dict(pipe.vae_encoder).items()})
     t0 = time.perf_counter()
     L.save_safetensors(tensors, path)
     n_bytes = os.path.getsize(path)
@@ -2089,9 +2398,10 @@ def write_official_2b(pipe, path) -> dict:
                 dtypes=sorted({str(t.dtype) for t in tensors.values()}))
 
 
-def cli_checkpoint_run(card, tier, path, emb_path, out_dir, ref):
+def cli_checkpoint_run(card, tier, path, emb_path, out_dir, ref, image_path=None):
     """``cli.main`` on the official file at 512x768x97 with the embeddings
-    file: the load timed (seconds, the file's GiB/s, the device peak of the
+    file (and ``--image image_path``, which needs the file's encoder): the
+    load timed (seconds, the file's GiB/s, the device peak of the
     DiT load and of the whole load), the launches of the request counted,
     the final latents and the frames against the in-memory ``ref``, the
     quantized payloads against the in-memory quantizer's."""
@@ -2101,8 +2411,10 @@ def cli_checkpoint_run(card, tier, path, emb_path, out_dir, ref):
     from candle_video_tpu_torch.models.ltx_video import loader as L
     from candle_video_tpu_torch.ops.kernels import _build
 
-    flag = {"bf16": [], "w8": ["--dit-int8"], "w4": ["--dit-int4"]}[tier]
-    quant = {"bf16": None, "w8": "w8", "w4": "w4"}[tier]
+    flag = {"bf16": [], "i2v": [], "w8": ["--dit-int8"], "w4": ["--dit-int4"]}[tier]
+    quant = {"bf16": None, "i2v": None, "w8": "w8", "w4": "w4"}[tier]
+    if image_path is not None:
+        flag = [*flag, "--image", image_path]
     seen = {}
     load_pipeline, dit_load = cli.load_pipeline, cli._DIT_LOADERS[quant]
 
@@ -2243,12 +2555,13 @@ def check_t5_dir(card, root, layers: int = 2):
 
 
 def run_checkpoint(card):
-    """A full-size official-layout 2B file (the DiT, VAE decoder and latent
-    statistics of ``build_random_pipeline("0.9.8-2b-distilled", seed=0)`` in
-    bf16, and some encoder tensors) written by the port's writer, then run
-    through ``cli.main`` three ways, bf16, ``--dit-int8`` and ``--dit-int4``,
-    each at 512x768x97 with the prompt embeddings of the in-memory int8 T5
-    from an embeddings file and the streamed tail in 2 chunks.  Each run's
+    """A full-size official-layout 2B file (the DiT, VAE decoder, VAE encoder
+    and latent statistics of ``build_random_pipeline("0.9.8-2b-distilled",
+    seed=0)`` in bf16) written by the port's writer, then run through
+    ``cli.main`` four ways, bf16, bf16 with ``--image`` (a PNG written here:
+    the encoder comes from the file), ``--dit-int8`` and ``--dit-int4``, each
+    at 512x768x97 with the prompt embeddings of the in-memory int8 T5 from
+    an embeddings file and the streamed tail in 2 chunks.  Each run's
     latents and frames are held to the in-memory pipeline's request on the
     same weights (quantized by ``quantize_transformer_w8`` / ``_w4`` for the
     tiers): equal, or within the spread of two in-memory runs; its payloads
@@ -2256,13 +2569,20 @@ def run_checkpoint(card):
     on the tiers, K3 or K4 392 (the DiT's cross-attention k/v at M = 128; no
     T5 runs); the DiT load's device peak to below the bf16 block tree.
     Then a full-width T5 HF directory.  The files are deleted at the end."""
+    import numpy as np
+    from PIL import Image
+
     from candle_video_tpu_torch.models.ltx_video import loader as L
     from candle_video_tpu_torch.models.ltx_video import transformer as TF
+    from candle_video_tpu_torch.utils.video_io import load_image
 
     root = os.path.join(OUT_DIR, "checkpoint")
     os.makedirs(root, exist_ok=True)
     path = os.path.join(root, "ltxv-2b-0.9.8-distilled-random.safetensors")
     emb_path = os.path.join(root, "embeddings.safetensors")
+    image_path = os.path.join(root, "anchor.png")
+    Image.fromarray(np.random.default_rng(8).integers(0, 256, (512, 768, 3), np.uint8)).save(
+        image_path)
     pipe, gib = build_pipeline("checkpoint", card, "0.9.8-2b-distilled")
     emb, mask = pipe.encode_prompt([CKPT_PROMPT], 128)
     L.save_safetensors({"prompt_embeds": emb, "prompt_attention_mask": mask}, emb_path)
@@ -2287,23 +2607,32 @@ def run_checkpoint(card):
         log(f"[checkpoint] in-memory {tier} request x2: latents spread "
             f"{refs[tier][2]:.3e}, frames spread {refs[tier][3]} | {card}")
         pipe.transformer = dense
+    i2v_kw = dict(kw, image=load_image(image_path, 512, 768))
+    (lat_a, fr_a), (lat_b, fr_b) = (reference_request(pipe, i2v_kw) for _ in range(2))
+    refs["i2v"] = (lat_a, fr_a, (lat_a - lat_b).abs().max().item(), frames_diff(fr_a, fr_b),
+                   None)
+    log(f"[checkpoint] in-memory i2v request x2: latents spread {refs['i2v'][2]:.3e}, frames "
+        f"spread {refs['i2v'][3]} | {card}")
+    n_encoder = len(pipe.vae_encoder.state_dict())
     info = write_official_2b(pipe, path)
     log(f"[checkpoint] wrote the official-layout 2B file: {info['tensors']} tensors "
-        f"({len(CKPT_ENCODER)} of the encoder), {info['gib']:.2f} GiB, {info['dtypes']}, in "
+        f"({n_encoder} of the encoder), {info['gib']:.2f} GiB, {info['dtypes']}, in "
         f"{info['write_s']:.2f} s; the bf16 block tree is {block_tree_gib:.2f} GiB | {card}")
     del dense, emb, mask, pipe  # one pipeline resident at a time
     gc.collect()
     torch.cuda.empty_cache()
     rows = {}
     want = {"bf16": {"flash_attention_packed": 196, "w8_matmul": 0, "w4_matmul": 0},
+            "i2v": {"flash_attention_packed": 196, "w8_matmul": 0, "w4_matmul": 0},
             "w8": {"flash_attention_packed": 196, "w8_matmul": 392, "w4_matmul": 0},
             "w4": {"flash_attention_packed": 196, "w4_matmul": 392, "w8_matmul": 0}}
-    for tier in ("bf16", "w8", "w4"):
-        row = cli_checkpoint_run(card, tier, path, emb_path, root, refs[tier])
+    for tier in ("bf16", "i2v", "w8", "w4"):
+        row = cli_checkpoint_run(card, tier, path, emb_path, root, refs[tier],
+                                 image_path if tier == "i2v" else None)
         if any(row["launches"].get(k, 0) != n for k, n in want[tier].items()):
             raise AssertionError(f"checkpoint cli {tier}: launches {row['launches']}, "
                                  f"want {want[tier]}")
-        if tier != "bf16" and not row["dit_peak_gib"] < block_tree_gib:
+        if tier in ("w8", "w4") and not row["dit_peak_gib"] < block_tree_gib:
             raise AssertionError(f"checkpoint cli {tier}: the streaming DiT load peaked at "
                                  f"{row['dit_peak_gib']:.3f} GiB, not below the "
                                  f"{block_tree_gib:.3f} GiB bf16 block tree")
@@ -2367,7 +2696,9 @@ def main() -> int:
     check_small_slice(card)
     check_small_slice(card, quant="w4")
     check_small_slice(card, quant="w8a8")
+    check_i2v_slice(card)
     launches, launches_k8 = run_e2e(card)
+    launches_i2v, launches_k8_encode = run_i2v(card)
     launches_w8a8 = run_w8a8(card)
     launches_sp = run_sp(card)
     launches_long = run_long(card)
@@ -2404,6 +2735,14 @@ def main() -> int:
         entry("conv3d_igemm", "conv3d_igemm.cu", "conv3d_igemm.py:98",
               launches_k8["conv3d_igemm"], k8),
     ]
+    # K1 on the t2v and the i2v request; K8 on the igemm decode and encode, each
+    # path read with the counts set to 0 just before it
+    kernels[0]["launches_by_path"] = {
+        "t2v 2B 97f": launches["flash_attention_packed"],
+        "i2v 2B 97f": launches_i2v["flash_attention_packed"]}
+    kernels[-1]["launches_by_path"] = {"igemm decode 97f": launches_k8["conv3d_igemm"],
+                                       "igemm encode 97f": launches_k8_encode["conv3d_igemm"]}
+    kernels[-1]["launches"] = sum(kernels[-1]["launches_by_path"].values())
     kernels[-1]["kernel_ms"] = k8["kernel_ms"]  # K8 alone, beside its wrapper's ms
     kernels[2]["kernel_ms"] = k3["kernel_ms"]   # K3 and K4 on the device, by profile
     kernels[3]["kernel_ms"] = k4["kernel_ms"]

@@ -27,6 +27,7 @@ LOADERS = {
     "transformer_w4_from_state_dict":
         lambda: LL.transformer_w4_from_state_dict({}, LtxTransformerConfig()),
     "vae_decoder_from_state_dict": lambda: LL.vae_decoder_from_state_dict({}, LtxVaeConfig()),
+    "vae_encoder_from_state_dict": lambda: LL.vae_encoder_from_state_dict({}, LtxVaeConfig()),
     "t5_from_hf_state_dict": lambda: PT5.t5_from_hf_state_dict({}, T5Config()),
 }
 

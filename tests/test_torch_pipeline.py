@@ -404,6 +404,19 @@ def test_port_generate_never_imports_jax(tmp_path):
                          max_sequence_length=16)
         assert out.shape == (1, 3, 5, 16, 16) and torch.isfinite(out).all()
         assert type(pipe.t5.blocks[0].q).__name__ == "Int4Linear"
+
+        # image to video: the VAE encoder (8x in space, as its config), the
+        # posterior's sample, the per-token loop
+        import dataclasses
+        vcfg8 = dataclasses.replace(cfg.vae, spatial_compression_ratio=8)
+        pipe = P.LtxPipeline(dataclasses.replace(cfg, vae=vcfg8),
+                             TF.init_random(cfg.transformer, "cpu", torch.float32),
+                             V.init_random(vcfg8, "cpu", torch.float32),
+                             vae_encoder=V.init_random_encoder(vcfg8, "cpu", torch.float32))
+        out = P.generate(pipe, prompt_embeds=torch.zeros(1, 16, 64),
+                         prompt_attention_mask=torch.ones(1, 16), image=torch.rand(3, 64, 64),
+                         height=64, width=64, num_frames=5, output_type="latent")
+        assert out.shape == (1, 2 * 8 * 8, 8) and torch.isfinite(out).all()
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert sys.modules["candle_video_tpu"] is None
         assert not [m for m in sys.modules if m.startswith("candle_video_tpu.")]

@@ -3,7 +3,8 @@
 of the LTX and SVD pipelines against the JAX package's key sequence.
 
 Keys must be equal bit for bit; float32 normals agree within atol 1e-5
-(the erfinv polynomial's rounding, a few ulp).  Seeds stay below 2**32:
+(the erfinv polynomial's rounding, a few ulp); bfloat16 normals (another
+stream: 8 random bits a value) are bit-equal.  Seeds stay below 2**32:
 above it the JAX key depends on x64 mode."""
 
 import numpy as np
@@ -37,6 +38,37 @@ def test_normal_matches_jax(seed, shape):
     want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape, jnp.float32))
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("seed", SEEDS + [42 + 3, 7 + 3 + 1])  # the i2v anchors' keys
+@pytest.mark.parametrize("shape", SHAPES + [(1, 128, 1, 16, 24)], ids=str)
+@pytest.mark.parametrize("dtype", ["bfloat16", torch.bfloat16], ids=["str", "torch"])
+def test_normal_bf16_matches_jax_bit_for_bit(seed, shape, dtype):
+    got = R.normal(R.prng_key(seed), shape, dtype)
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape, jnp.bfloat16)
+                      .astype(jnp.float32))
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert np.array_equal(torch.from_numpy(got).bfloat16().float().numpy(), got)
+
+
+def test_normal_bf16_is_its_own_stream_and_dtypes():
+    key = R.prng_key(45)
+    bf16 = R.normal(key, (64,), "bfloat16")
+    f32 = R.normal(key, (64,))
+    assert np.abs(bf16 - R.round_bf16(f32)).max() > 0.5  # not the f32 draw rounded
+    np.testing.assert_allclose(bf16[:3], [-0.15234375, 0.5390625, 0.28320312], atol=0)
+    for dt in (np.float32, "float32", torch.float32, np.dtype("float32")):
+        np.testing.assert_array_equal(R.normal(key, (5,), dt), f32[:5])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        R.normal(key, (5,), torch.float16)
+
+
+def test_round_bf16_ties_to_even():
+    x = np.array([1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8, -2.5, 3.0e38, np.inf], np.float32)
+    np.testing.assert_array_equal(
+        R.round_bf16(x), torch.from_numpy(x).bfloat16().float().numpy())
+    assert np.isnan(R.round_bf16(np.array([np.nan], np.float32))).all()
 
 
 @pytest.mark.parametrize("seed", SEEDS)

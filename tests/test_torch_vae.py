@@ -77,8 +77,20 @@ def test_denormalize_and_unsupported_modes(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
     dec = PV.init_random(LtxVaeConfig(**TINY), "cpu", torch.float32,
                          generator=torch.Generator().manual_seed(1))
-    with pytest.raises(NotImplementedError):
-        PV.decode(dec, torch.zeros(1, 8, 2, 2, 2), tiling=True)
+    tree = _tree()
+    tiling = dict(tile_sample_min_height=24, tile_sample_min_width=24,
+                  tile_sample_stride_height=16, tile_sample_stride_width=16)
+    zt = rng.normal(size=(1, 8, 2, 4, 4)).astype(np.float32)
+    with torch.no_grad():
+        tiled = PV.decode(vae_decoder_from_jax(tree, LtxVaeConfig(**TINY)), torch.from_numpy(zt),
+                          torch.tensor([0.05]), tiling=PV.TilingConfig(**tiling), use_tiling=True)
+    jdec = jax.tree.map(jnp.asarray, tree["decoder"])
+    want = JV.tiled_decode(None, JV.LtxVaeConfig(**TINY), jnp.asarray(zt),
+                           jnp.asarray([0.05], jnp.float32), JV.TilingConfig(**tiling),
+                           jax.jit(lambda zz, tt: JV.decoder_forward(
+                               jdec, JV.LtxVaeConfig(**TINY), zz, tt)))
+    assert tiled.shape == (1, 3, 5, 32, 32)
+    np.testing.assert_allclose(tiled.numpy(), np.asarray(want), atol=5e-4, rtol=0)
     z = torch.from_numpy(rng.normal(size=(1, 8, 3, 2, 2)).astype(np.float32))
     with torch.no_grad():
         streamed = PV.decode(dec, z, tail_stream_chunks=2)
