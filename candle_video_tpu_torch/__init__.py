@@ -6,8 +6,9 @@ reference.  Layout mirrors it module for module: ``ops/`` (norms,
 activations, embeddings, RoPE, attention, conv3d), ``ops/kernels/`` (the
 kernel wrappers and their plain versions), ``csrc/`` (the CUDA sources),
 ``models/ltx_video/`` (configs, scheduler, DiT, T5, VAE decoder, pipeline,
-weight conversion), ``quant/`` (GGUF reader), ``utils/`` (PCG32, tokenizer,
-video export) and ``cli.py``.  Nothing here imports JAX or
+weight conversion), ``models/registry.py``, ``quant/`` (GGUF reader),
+``utils/`` (PCG32, tokenizer, video export, debug utilities), ``serving.py``
+(shape buckets, continuous batching) and ``cli.py``.  Nothing here imports JAX or
 ``candle_video_tpu``: the jax-free modules it needs are copied here.
 """
 

@@ -14,7 +14,8 @@ int4, the T5-XXL with int8 weights resident or from ``--t5-gguf``).
 ``--image path[:frame[:strength]]`` (repeatable) conditions the video on
 images, which the VAE encoder encodes: the checkpoint must hold the
 encoder's tensors.  ``--vae-tiling`` and ``--vae-slicing`` tile and slice
-the decode.
+the decode.  ``--serve`` runs the serving loop (``serving.py``): one prompt a
+stdin line, one video file a request.
 
 Run: python -m candle_video_tpu_torch.cli --weights-path ltxv-2b-0.9.8-distilled.safetensors \
          --t5-dir text_encoder --tokenizer tokenizer.json --dit-int8
@@ -23,6 +24,7 @@ Run: python -m candle_video_tpu_torch.cli --weights-path ltxv-2b-0.9.8-distilled
      python -m candle_video_tpu_torch.cli --version 0.9.8-13b-distilled \
          --dit-int4 --height 256 --width 384 --num-frames 25 --output-type latent
      python -m candle_video_tpu_torch.cli --image first.png --image last.png:12:0.9
+     python -m candle_video_tpu_torch.cli --serve --serve-max-batch 2 < prompts.txt
 
 Sequence-parallel ring attention over N GPUs of one host, one process each:
      torchrun --nproc_per_node=N -m candle_video_tpu_torch.cli --mesh sp=N
@@ -32,9 +34,12 @@ from __future__ import annotations
 
 import argparse
 import os
+import queue
 import signal
 import sys
+import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -47,6 +52,7 @@ from .models.ltx_video import vae as V
 from .models.ltx_video.configs import get_config_by_version, t5_xxl
 from .models.ltx_video.pipeline import LtxPipeline, generate
 from .models.ltx_video.weight_format import detect_format, split_unified_state_dict
+from .models.registry import build_pipeline
 from .parallel import make_mesh
 from .utils.tokenizer import MockTokenizer, T5TokenizerWrapper
 
@@ -101,6 +107,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "jax.random.normal(PRNGKey(seed))")
     p.add_argument("--output-type", type=str, default="tensor", choices=["tensor", "latent"])
     p.add_argument("--output-dir", type=str, default="output")
+    p.add_argument("--serve", action="store_true",
+                   help="serving loop: warm the --height/--width/--num-frames/steps bucket "
+                        "once, then read one prompt a stdin line and write "
+                        "output-dir/serve_NNN.mp4 a request (GIF without ffmpeg); EOF or "
+                        "'quit' ends (serving.VideoGenerationServer)")
+    p.add_argument("--serve-max-batch", type=int, default=1,
+                   help="continuous-batching width for --serve: up to N requests queued "
+                        "behind a running one are served as one batched generate()")
     p.add_argument("--embeddings-file", type=str, default=None,
                    help="safetensors with prompt_embeds / prompt_attention_mask (and "
                         "negative_*): the text encoder does not run")
@@ -227,10 +241,10 @@ def build_random_pipeline(version: str, device, dtype=torch.bfloat16, seed: int 
     t5_cfg = t5_xxl()
     if t5 is None:
         t5 = _T5_INITS[t5_quant](t5_cfg, device, dtype)
-    return LtxPipeline(config=cfg, transformer=transformer, vae=vae, t5=t5,
-                       t5_config=t5_cfg,
-                       tokenizer=MockTokenizer(model_max_length=max_sequence_length),
-                       vae_encoder=encoder)
+    return build_pipeline("ltx_video", config=cfg, transformer=transformer, vae=vae, t5=t5,
+                          t5_config=t5_cfg,
+                          tokenizer=MockTokenizer(model_max_length=max_sequence_length),
+                          vae_encoder=encoder)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -297,13 +311,19 @@ def load_pipeline(args, device, dtype) -> LtxPipeline:
     vae = L.vae_decoder_from_state_dict(vsd, cfg.vae, device, dtype)
     encoder = (L.vae_encoder_from_state_dict(vsd, cfg.vae, device, dtype)
                if L.has_vae_encoder(vsd) else None)
-    return LtxPipeline(config=cfg, transformer=transformer, vae=vae,
-                       t5=load_t5(args, device, dtype), t5_config=t5_xxl(),
-                       tokenizer=tokenizer, vae_encoder=encoder)
+    return build_pipeline("ltx_video", config=cfg, transformer=transformer, vae=vae,
+                          t5=load_t5(args, device, dtype), t5_config=t5_xxl(),
+                          tokenizer=tokenizer, vae_encoder=encoder)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.serve and args.mesh:
+        raise SystemExit("--serve is the single-GPU serving loop and does not compose with "
+                         "--mesh")
+    if args.serve and (args.image or args.output_type == "latent"):
+        raise SystemExit("--serve serves text prompts to video files; --image and "
+                         "--output-type latent go through the one-shot CLI path")
     dit_quant = _dit_quant(args)
     mesh = parse_mesh(args.mesh) if args.mesh else None
     if mesh is not None and dit_quant:
@@ -347,6 +367,110 @@ def _prompt_kwargs(args, pipe) -> dict:
                 negative_prompt_attention_mask=mask)
 
 
+def run_serve(args, pipe) -> int:
+    """The serving loop over ``serving.VideoGenerationServer``: the CLI's
+    bucket is warmed once (a single request, and a batch of
+    ``--serve-max-batch`` rows when batching), then each stdin line is a
+    request whose video lands in ``output_dir/serve_NNN.mp4``.
+
+    Lines are submitted as they are read, without waiting for the videos
+    before them, so that requests queued behind a running one are served
+    together, up to ``--serve-max-batch`` in one batched ``generate``; a
+    writer thread takes the results in submission order.  Every request
+    carries its embeddings (the server batches only such requests): with a
+    T5 the prompt, and under guidance the negative prompt, are encoded as
+    the line is read (``pipe.encode_prompt``, cached); without one, a prompt
+    maps to random embeddings seeded by the CRC-32 of its UTF-8 bytes, the
+    same in every process."""
+    from .serving import Request, ShapeBucket, VideoGenerationServer
+    from .utils import video_io
+
+    inf = pipe.config.inference
+    steps = args.num_inference_steps or inf.num_inference_steps
+    g = args.guidance_scale if args.guidance_scale is not None else inf.guidance_scale
+    mock = pipe.t5 is None or pipe.tokenizer is None
+    guidance = bool(g and g > 1.0) and not mock
+    bucket = ShapeBucket(args.height, args.width, args.num_frames, steps, guidance)
+    if mock:
+        print("[serve] no T5 weights: prompts map to random embeddings seeded by the prompt "
+              "(smoke mode; pass --t5-gguf/--t5-dir for real serving)")
+    server = VideoGenerationServer(
+        pipe, [bucket], max_batch=args.serve_max_batch, use_pcg_rng=args.pcg_rng,
+        vae_tail_stream_chunks=args.vae_stream_chunks,
+        max_sequence_length=args.max_sequence_length)
+    print(f"[serve] warming bucket {bucket.key()}...")
+    t0 = time.perf_counter()
+    server.warmup()
+    print(f"[serve] warm in {time.perf_counter() - t0:.1f}s; one prompt a line (EOF or "
+          "'quit' ends)")
+    os.makedirs(args.output_dir, exist_ok=True)
+    cap = pipe.config.transformer.caption_channels
+    length = args.max_sequence_length
+    submitted: queue.Queue = queue.Queue()  # (n, prompt, result queue, t0); None ends
+    failed: list = []
+
+    def write_results():  # its first error ends it; run_serve raises that error
+        while (item := submitted.get()) is not None:
+            n, prompt, result, t_submit = item
+            try:
+                out = result.get(timeout=1800)
+                if isinstance(out, Exception):
+                    raise out
+                path = video_io.save_mp4(out.float().cpu().numpy(),
+                                         os.path.join(args.output_dir, f"serve_{n:03d}.mp4"),
+                                         args.frame_rate)
+            except queue.Empty:
+                failed.append(TimeoutError(f"request #{n} took over 1800 s"))
+                return
+            except Exception as e:
+                failed.append(e)
+                return
+            print(f"[serve] #{n} {prompt[:48]!r} -> {path} "
+                  f"({time.perf_counter() - t_submit:.2f}s)", flush=True)
+
+    def embeddings(prompt: str) -> dict:
+        if mock:
+            rngk = np.random.default_rng(zlib.crc32(prompt.encode("utf-8")))
+            embeds = rngk.normal(size=(1, length, cap)) * 0.02
+            return dict(prompt_embeds=torch.from_numpy(embeds).float(),
+                        prompt_attention_mask=torch.ones(1, length))
+        with torch.no_grad():
+            emb, mask = pipe.encode_prompt([prompt], length)
+            kw = dict(prompt_embeds=emb, prompt_attention_mask=mask)
+            if guidance:
+                neg, neg_mask = pipe.encode_prompt([args.negative_prompt], length)
+                kw.update(negative_prompt_embeds=neg, negative_prompt_attention_mask=neg_mask)
+        return kw
+
+    server.start()
+    writer = threading.Thread(target=write_results, daemon=True)
+    writer.start()
+    n = 0
+    interrupted = False
+    try:
+        for line in sys.stdin:
+            prompt = line.strip()
+            if prompt in ("quit", "exit") or failed:
+                break
+            if not prompt:
+                continue
+            req = Request(bucket=bucket, seed=args.seed + n, **embeddings(prompt))
+            submitted.put((n, prompt, server.submit(req), time.perf_counter()))
+            n += 1
+    except KeyboardInterrupt:
+        interrupted = True
+        print("\n[serve] interrupted")
+    finally:
+        if not interrupted:
+            submitted.put(None)
+            writer.join()
+        server.stop()
+    print(f"[serve] served {server.stats()['served']} videos")
+    if failed:
+        raise failed[0]
+    return 0
+
+
 def _run(args, dit_quant, device, sp_mesh=None) -> int:
     lead = sp_mesh is None or dist.get_rank() == 0  # the rank that prints and saves
     say = print if lead else (lambda *a, **k: None)
@@ -358,6 +482,8 @@ def _run(args, dit_quant, device, sp_mesh=None) -> int:
     t0 = time.perf_counter()
     pipe = load_pipeline(args, device, dtype)
     say(f"loaded pipeline in {time.perf_counter() - t0:.2f}s")
+    if args.serve:
+        return run_serve(args, pipe)
 
     kwargs = _prompt_kwargs(args, pipe)
     if args.initial_latents_file:

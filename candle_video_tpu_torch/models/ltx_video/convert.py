@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ...ops.quant_linear import Int4Linear, Int8Linear, W8A8Linear
+from ...utils.device import loader_device
 from . import t5 as T5
 from . import transformer as TF
 from . import vae as V
@@ -100,8 +101,9 @@ _DIT_LEAVES = {"w8": "w_q", "w8_scale": "s", "weight_q": "w_q"}
 
 
 @torch.no_grad()
-def transformer_from_jax(tree, cfg: LtxTransformerConfig, device="cpu", dtype=None):
+def transformer_from_jax(tree, cfg: LtxTransformerConfig, device="cuda", dtype=None):
     """JAX DiT tree (stacked ``blocks`` [L, ...]) -> LtxTransformer3D."""
+    device = loader_device(device)
     dtype = dtype or _dtype_of(tree["proj_in"]["weight"])
     top = {
         "proj_in": tree["proj_in"],
@@ -136,9 +138,10 @@ def transformer_from_jax(tree, cfg: LtxTransformerConfig, device="cpu", dtype=No
 
 
 @torch.no_grad()
-def vae_decoder_from_jax(tree, cfg: LtxVaeConfig, device="cpu", dtype=None):
+def vae_decoder_from_jax(tree, cfg: LtxVaeConfig, device="cuda", dtype=None):
     """JAX VAE tree (``decoder`` plus ``latents_mean``/``latents_std``) ->
     LtxVaeDecoder."""
+    device = loader_device(device)
     dec = tree["decoder"]
     dtype = dtype or _dtype_of(dec["conv_in"]["weight"])
     state = {"latents_mean": tree["latents_mean"], "latents_std": tree["latents_std"]}
@@ -152,9 +155,10 @@ def vae_decoder_from_jax(tree, cfg: LtxVaeConfig, device="cpu", dtype=None):
 
 
 @torch.no_grad()
-def vae_encoder_from_jax(tree, cfg: LtxVaeConfig, device="cpu", dtype=None):
+def vae_encoder_from_jax(tree, cfg: LtxVaeConfig, device="cuda", dtype=None):
     """JAX VAE tree (its ``encoder``; a ``norm_out`` there gives the module
     one) -> LtxVaeEncoder."""
+    device = loader_device(device)
     enc = tree["encoder"]
     dtype = dtype or _dtype_of(enc["conv_in"]["weight"])
     state = {}
@@ -177,10 +181,11 @@ def _linear(p, device, dtype):
 
 
 @torch.no_grad()
-def t5_from_jax(tree, cfg: T5Config, device="cpu", dtype=None):
+def t5_from_jax(tree, cfg: T5Config, device="cuda", dtype=None):
     """JAX T5 tree, per-layer list or stacked (``rel_bias``), dense
     ``{weight}``, int8 ``{w_q, s[, b]}`` or Q4_K-form ``{w4, w4_scale,
     w4_min}`` linears -> T5Encoder."""
+    device = loader_device(device)
     dtype = dtype or _dtype_of(tree["embedding"])
     blocks = tree["blocks"]
     if isinstance(blocks, (list, tuple)):

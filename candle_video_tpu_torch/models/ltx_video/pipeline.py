@@ -36,6 +36,7 @@ import torch
 
 from ...ops.rope import rope_cos_sin
 from ...parallel.sequence import denoise_loop_sp
+from ...utils import debug
 from ...utils import rng as R
 from . import scheduler as S
 from . import vae as V
@@ -405,9 +406,11 @@ def generate(
     ``output_type="latent"``.
 
     ``stage_times``, when a dict, receives synchronised wall-clock seconds
-    of the stages: ``t5_encode``, ``anchor_encode`` (with image
-    conditioning), ``denoise_steps`` (a list), ``vae_decode`` and ``total``,
-    and ``decode_mode``, the decode keywords used.
+    of the stages (``utils.debug.StageTimer``): ``t5_encode``,
+    ``anchor_encode`` (with image conditioning), ``denoise_steps`` (a list),
+    ``vae_decode`` and ``total``, and ``decode_mode``, the decode keywords
+    used.  With ``CVT_DUMP_TENSORS=<dir>`` the packed initial and final
+    latents are written there (``utils.debug.dump_tensor``).
 
     ``image`` / ``image_latents`` place one hard anchor on the first latent
     frame; ``conditioning`` is the general list of ``ConditioningItem``s (at
@@ -433,6 +436,7 @@ def generate(
         if sp_mesh.device != device:
             raise ValueError(f"sp_mesh is on {sp_mesh.device}, the pipeline on {device}")
     timing = stage_times is not None
+    timer = debug.StageTimer(enabled=timing)
     t_start = time.perf_counter()
 
     if isinstance(prompt, str):
@@ -464,34 +468,32 @@ def generate(
     eff_batch = batch * num_videos_per_prompt
 
     # ---- prompt embeddings ------------------------------------------------
-    if prompt_embeds is None:
-        p_emb, p_mask = pipe.encode_prompt(prompt, max_sequence_length)
-    else:
-        p_emb = _as_tensor(prompt_embeds, device)
-        p_mask = _as_tensor(prompt_attention_mask, device, torch.float32)
-    n_emb = n_mask = None
-    if do_cfg:
-        if negative_prompt_embeds is None:
-            neg = negative_prompt if negative_prompt is not None else [""] * batch
-            if len(neg) == 1 and batch > 1:
-                neg = neg * batch
-            n_emb, n_mask = pipe.encode_prompt(neg, max_sequence_length)
+    with timer.stage("t5_encode"):
+        if prompt_embeds is None:
+            p_emb, p_mask = pipe.encode_prompt(prompt, max_sequence_length)
         else:
-            n_emb = _as_tensor(negative_prompt_embeds, device)
-            n_mask = _as_tensor(negative_prompt_attention_mask, device, torch.float32)
-    if num_videos_per_prompt > 1:
-        p_emb = p_emb.repeat_interleave(num_videos_per_prompt, 0)
-        p_mask = p_mask.repeat_interleave(num_videos_per_prompt, 0)
+            p_emb = _as_tensor(prompt_embeds, device)
+            p_mask = _as_tensor(prompt_attention_mask, device, torch.float32)
+        n_emb = n_mask = None
         if do_cfg:
-            n_emb = n_emb.repeat_interleave(num_videos_per_prompt, 0)
-            n_mask = n_mask.repeat_interleave(num_videos_per_prompt, 0)
-    rows = ([(n_emb, n_mask)] if do_cfg else []) + [(p_emb, p_mask)] + \
-        ([(p_emb, p_mask)] if do_stg else [])
-    enc_states = torch.cat([r[0] for r in rows])
-    enc_mask = torch.cat([r[1] for r in rows])
-    if timing:
-        _sync(device)
-        stage_times["t5_encode"] = time.perf_counter() - t_start
+            if negative_prompt_embeds is None:
+                neg = negative_prompt if negative_prompt is not None else [""] * batch
+                if len(neg) == 1 and batch > 1:
+                    neg = neg * batch
+                n_emb, n_mask = pipe.encode_prompt(neg, max_sequence_length)
+            else:
+                n_emb = _as_tensor(negative_prompt_embeds, device)
+                n_mask = _as_tensor(negative_prompt_attention_mask, device, torch.float32)
+        if num_videos_per_prompt > 1:
+            p_emb = p_emb.repeat_interleave(num_videos_per_prompt, 0)
+            p_mask = p_mask.repeat_interleave(num_videos_per_prompt, 0)
+            if do_cfg:
+                n_emb = n_emb.repeat_interleave(num_videos_per_prompt, 0)
+                n_mask = n_mask.repeat_interleave(num_videos_per_prompt, 0)
+        rows = ([(n_emb, n_mask)] if do_cfg else []) + [(p_emb, p_mask)] + \
+            ([(p_emb, p_mask)] if do_stg else [])
+        enc_states = torch.cat([r[0] for r in rows])
+        enc_mask = torch.cat([r[1] for r in rows])
 
     # ---- latents ------------------------------------------------------------
     tr, sr = vcfg.temporal_compression_ratio, vcfg.spatial_compression_ratio
@@ -508,20 +510,17 @@ def generate(
         cond5 = _conditioning_mask(pipe, conditioning, (eff_batch, 1, lf, lh, lw))
         cond_mask = pack_latents(cond5, tcfg.patch_size, tcfg.patch_size_t)[..., 0]
     if latents is None and i2v:
-        t_anchor = time.perf_counter()
-        shape = (eff_batch, tcfg.in_channels, lf, lh, lw)
-        noise5 = torch.from_numpy(R.Pcg32(seed, 0).randn(shape) if use_pcg_rng
-                                  else R.normal(R.prng_key(seed), shape)).to(device)
-        init5 = torch.zeros(shape, dtype=torch.float32, device=device)
-        for idx, item in enumerate(conditioning):
-            init5[:, :, item.frame_index:item.frame_index + 1] = _anchor_latents(
-                pipe, item, idx, seed, eff_batch, num_videos_per_prompt,
-                conditioning_sample_mode, use_vae_tiling)
-        lat5 = init5 * cond5 + noise5 * (1.0 - cond5)
-        latents = pack_latents(lat5, tcfg.patch_size, tcfg.patch_size_t)
-        if timing:
-            _sync(device)
-            stage_times["anchor_encode"] = time.perf_counter() - t_anchor
+        with timer.stage("anchor_encode"):
+            shape = (eff_batch, tcfg.in_channels, lf, lh, lw)
+            noise5 = torch.from_numpy(R.Pcg32(seed, 0).randn(shape) if use_pcg_rng
+                                      else R.normal(R.prng_key(seed), shape)).to(device)
+            init5 = torch.zeros(shape, dtype=torch.float32, device=device)
+            for idx, item in enumerate(conditioning):
+                init5[:, :, item.frame_index:item.frame_index + 1] = _anchor_latents(
+                    pipe, item, idx, seed, eff_batch, num_videos_per_prompt,
+                    conditioning_sample_mode, use_vae_tiling)
+            lat5 = init5 * cond5 + noise5 * (1.0 - cond5)
+            latents = pack_latents(lat5, tcfg.patch_size, tcfg.patch_size_t)
     elif latents is None:
         shape = (eff_batch, tcfg.in_channels, lf, lh, lw)
         lat5 = (R.Pcg32(seed, 0).randn(shape) if use_pcg_rng
@@ -532,6 +531,7 @@ def generate(
         latents = _as_tensor(latents, device, torch.float32)
         if latents.ndim == 5:
             latents = pack_latents(latents, tcfg.patch_size, tcfg.patch_size_t)
+    debug.dump_tensor("initial_latents", latents)
 
     # ---- decode mode: the one asked for, else resolved once, from the free
     # memory before the denoise ---------------------------------------------------
@@ -599,39 +599,38 @@ def generate(
                              interrupted=lambda: pipe.interrupt, **guidance)
     if timing:
         stage_times["denoise_steps"] = step_seconds
+    debug.dump_tensor("final_latents", final)
     if output_type == "latent":
         if timing:
-            stage_times["total"] = time.perf_counter() - t_start
+            stage_times.update(timer.stages, total=time.perf_counter() - t_start)
         return final
 
     # ---- decode -----------------------------------------------------------------
     if pipe.vae is None:
         raise ValueError("pipeline has no VAE; use output_type='latent'")
-    t_dec = time.perf_counter()
-    temb = noise = scale = None
-    if vcfg.timestep_conditioning:
-        dt = list(decode_timestep or [0.0])
-        dt = dt * eff_batch if len(dt) == 1 else dt
-        dns = list(decode_noise_scale or dt)
-        dns = dns * eff_batch if len(dns) == 1 else dns
-        temb = torch.tensor(dt, dtype=torch.float32, device=device)
-        scale = torch.tensor(dns, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1, 1)
-        shape = (eff_batch, vcfg.latent_channels, lf, lh, lw)
-        if decode_noise is not None:
-            noise = _as_tensor(decode_noise, device, torch.float32)
-        else:
-            noise = torch.from_numpy(R.normal(R.prng_key(seed + 2), shape)).to(device)
-    lat5 = prepare_decode(final, pipe.vae.latents_mean, pipe.vae.latents_std, noise,
-                          scale, num_frames=lf, height=lh, width=lw,
-                          patch_size=tcfg.patch_size, patch_size_t=tcfg.patch_size_t,
-                          scaling_factor=vcfg.scaling_factor)
-    video = V.decode(pipe.vae, lat5, temb, tiling=vae_tiling, use_tiling=use_vae_tiling,
-                     use_framewise_decoding=use_vae_tiling, use_slicing=use_vae_slicing,
-                     **decode_kw)
-    video = postprocess_video(video)
+    with timer.stage("vae_decode"):
+        temb = noise = scale = None
+        if vcfg.timestep_conditioning:
+            dt = list(decode_timestep or [0.0])
+            dt = dt * eff_batch if len(dt) == 1 else dt
+            dns = list(decode_noise_scale or dt)
+            dns = dns * eff_batch if len(dns) == 1 else dns
+            temb = torch.tensor(dt, dtype=torch.float32, device=device)
+            scale = torch.tensor(dns, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1, 1)
+            shape = (eff_batch, vcfg.latent_channels, lf, lh, lw)
+            if decode_noise is not None:
+                noise = _as_tensor(decode_noise, device, torch.float32)
+            else:
+                noise = torch.from_numpy(R.normal(R.prng_key(seed + 2), shape)).to(device)
+        lat5 = prepare_decode(final, pipe.vae.latents_mean, pipe.vae.latents_std, noise,
+                              scale, num_frames=lf, height=lh, width=lw,
+                              patch_size=tcfg.patch_size, patch_size_t=tcfg.patch_size_t,
+                              scaling_factor=vcfg.scaling_factor)
+        video = V.decode(pipe.vae, lat5, temb, tiling=vae_tiling, use_tiling=use_vae_tiling,
+                         use_framewise_decoding=use_vae_tiling, use_slicing=use_vae_slicing,
+                         **decode_kw)
+        video = postprocess_video(video)
     if timing:
-        stage_times["decode_mode"] = decode_kw
-        _sync(device)
-        stage_times["vae_decode"] = time.perf_counter() - t_dec
-        stage_times["total"] = time.perf_counter() - t_start
+        stage_times.update(timer.stages, decode_mode=decode_kw,
+                           total=time.perf_counter() - t_start)
     return video

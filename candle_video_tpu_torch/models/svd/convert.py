@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...utils.device import loader_device
 from ..ltx_video.convert import _flatten
 from .configs import ClipEncoderConfig, SvdUnetConfig, SvdVaeConfig
 from .clip import empty_clip
@@ -52,16 +53,18 @@ def _dtype_of(tree_leaf, dtype):
 
 
 @torch.no_grad()
-def unet_from_jax(tree, cfg: SvdUnetConfig, device="cpu", dtype=None):
+def unet_from_jax(tree, cfg: SvdUnetConfig, device="cuda", dtype=None):
     """JAX SVD UNet tree -> UNetSpatioTemporalConditionModel."""
+    device = loader_device(device)
     dtype = _dtype_of(tree["conv_in"]["weight"], dtype)
     return load_into(empty_unet(cfg, device, dtype), state_dict_from_jax(tree))
 
 
 @torch.no_grad()
-def vae_from_jax(tree, cfg: SvdVaeConfig, device="cpu", dtype=None):
+def vae_from_jax(tree, cfg: SvdVaeConfig, device="cuda", dtype=None):
     """JAX SVD VAE tree (``encoder``, ``decoder``, ``quant_conv``) ->
     AutoencoderKLTemporalDecoder."""
+    device = loader_device(device)
     dtype = _dtype_of(tree["quant_conv"]["weight"], dtype)
     state = state_dict_from_jax(tree)
     n_mid = count_keys(state, "decoder.mid_block.resnets.{}.spatial_res_block.conv1.weight")
@@ -77,7 +80,8 @@ def _clip_name(path: str) -> str:
 
 
 @torch.no_grad()
-def clip_from_jax(tree, cfg: ClipEncoderConfig, device="cpu", dtype=None):
+def clip_from_jax(tree, cfg: ClipEncoderConfig, device="cuda", dtype=None):
     """JAX CLIP tree -> ClipVisionModelWithProjection."""
+    device = loader_device(device)
     dtype = _dtype_of(tree["visual_projection"]["weight"], dtype)
     return load_into(empty_clip(cfg, device, dtype), state_dict_from_jax(tree, _clip_name))

@@ -8,6 +8,7 @@ pad/truncate to a fixed length (default 128), 0/1 attention mask.
 
 from __future__ import annotations
 
+import zlib
 from typing import Sequence
 
 import numpy as np
@@ -36,7 +37,10 @@ class T5TokenizerWrapper:
 
 class MockTokenizer:
     """Deterministic hash tokenizer for tests / embed-injection runs — the
-    reference's DummyTokenizer role (examples/ltx-video/main.rs:151-173)."""
+    reference's DummyTokenizer role (examples/ltx-video/main.rs:151-173).
+    A word's id comes from the CRC-32 of its UTF-8 bytes, the same in every
+    process (the JAX package's copy uses ``hash()``, which Python salts per
+    process)."""
 
     def __init__(self, vocab_size: int = 32128, model_max_length: int = 128):
         self.vocab_size = vocab_size
@@ -47,9 +51,8 @@ class MockTokenizer:
         ids = np.zeros((len(prompts), max_length), np.int32)
         mask = np.zeros((len(prompts), max_length), np.int32)
         for i, p in enumerate(prompts):
-            toks = [(hash(w) % (self.vocab_size - 2)) + 1 for w in p.split()][
-                : max_length - 1
-            ]
+            toks = [zlib.crc32(w.encode("utf-8")) % (self.vocab_size - 2) + 1
+                    for w in p.split()][: max_length - 1]
             toks.append(1)  # EOS
             ids[i, : len(toks)] = toks
             mask[i, : len(toks)] = 1

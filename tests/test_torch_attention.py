@@ -311,7 +311,7 @@ def test_dit_forward_long_route_matches_jax(rng, monkeypatch):
                                   jnp.asarray(t), cos, sin, attn_impl="xla"))
 
     model = transformer_from_jax(jax.tree.map(np.asarray, params),
-                                 LtxTransformerConfig(**cfg))
+                                 LtxTransformerConfig(**cfg), device="cpu")
     calls = []
     plain_long = FAP.flash_attention_packed_long_plain
     monkeypatch.setattr(FAP, "flash_attention_packed_long_plain",

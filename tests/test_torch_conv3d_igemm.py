@@ -127,7 +127,7 @@ def test_tiny_wide_decoder_under_igemm_matches_jax(monkeypatch):
     tree["decoder"] = jax.tree.map(
         lambda a: a + rng.normal(size=a.shape).astype(np.float32) * 0.02 if a.ndim == 1
         else a, tree["decoder"])
-    dec = vae_decoder_from_jax(tree, PC.LtxVaeConfig(**WIDE))
+    dec = vae_decoder_from_jax(tree, PC.LtxVaeConfig(**WIDE), device="cpu")
     z = rng.normal(size=(1, 128, 3, 2, 3)).astype(np.float32)
     temb = np.array([0.05], np.float32)
     want = JV.decoder_forward(jax.tree.map(jnp.asarray, tree["decoder"]),

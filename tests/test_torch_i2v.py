@@ -82,9 +82,9 @@ def _pipelines(trees, inference=DISTILLED):
     pcfg = _cfg(PC, inference)
     np_tree = jax.tree.map(np.asarray, vparams)
     ppipe = PP.LtxPipeline(pcfg, PCV.transformer_from_jax(jax.tree.map(np.asarray, tparams),
-                                                          pcfg.transformer),
-                           PCV.vae_decoder_from_jax(np_tree, pcfg.vae),
-                           vae_encoder=PCV.vae_encoder_from_jax(np_tree, pcfg.vae))
+                                                          pcfg.transformer, device="cpu"),
+                           PCV.vae_decoder_from_jax(np_tree, pcfg.vae, device="cpu"),
+                           vae_encoder=PCV.vae_encoder_from_jax(np_tree, pcfg.vae, device="cpu"))
     return jpipe, ppipe
 
 

@@ -1,16 +1,19 @@
-"""The port's public loaders put a model on the GPU unless told otherwise:
-called without a device on a machine with no CUDA, each raises instead of
-loading the model to the CPU."""
+"""The port's public loaders, and the converters that carry the JAX
+package's trees into its modules, put a model on the GPU unless told
+otherwise: called without a device on a machine with no CUDA, each raises
+instead of loading the model to the CPU."""
 
 import pytest
 import torch
 
+from candle_video_tpu_torch.models.ltx_video import convert as LCV
 from candle_video_tpu_torch.models.ltx_video import loader as LL
 from candle_video_tpu_torch.models.ltx_video import t5 as PT5
 from candle_video_tpu_torch.models.ltx_video.configs import (LtxTransformerConfig,
                                                              LtxVaeConfig, T5Config)
 from candle_video_tpu_torch.models.svd import clip as PC
 from candle_video_tpu_torch.models.svd import configs as PCFG
+from candle_video_tpu_torch.models.svd import convert as SCV
 from candle_video_tpu_torch.models.svd import loader as PL
 from candle_video_tpu_torch.models.svd import vae as PV
 
@@ -29,6 +32,13 @@ LOADERS = {
     "vae_decoder_from_state_dict": lambda: LL.vae_decoder_from_state_dict({}, LtxVaeConfig()),
     "vae_encoder_from_state_dict": lambda: LL.vae_encoder_from_state_dict({}, LtxVaeConfig()),
     "t5_from_hf_state_dict": lambda: PT5.t5_from_hf_state_dict({}, T5Config()),
+    "transformer_from_jax": lambda: LCV.transformer_from_jax({}, LtxTransformerConfig()),
+    "vae_decoder_from_jax": lambda: LCV.vae_decoder_from_jax({}, LtxVaeConfig()),
+    "vae_encoder_from_jax": lambda: LCV.vae_encoder_from_jax({}, LtxVaeConfig()),
+    "t5_from_jax": lambda: LCV.t5_from_jax({}, T5Config()),
+    "unet_from_jax": lambda: SCV.unet_from_jax({}, PCFG.SvdUnetConfig()),
+    "vae_from_jax": lambda: SCV.vae_from_jax({}, PCFG.SvdVaeConfig()),
+    "clip_from_jax": lambda: SCV.clip_from_jax({}, PCFG.ClipEncoderConfig()),
 }
 
 

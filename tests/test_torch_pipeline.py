@@ -33,7 +33,7 @@ from candle_video_tpu_torch.models.ltx_video import configs as PC
 from candle_video_tpu_torch.models.ltx_video import convert as PCV
 from candle_video_tpu_torch import cli as PCLI
 from candle_video_tpu_torch.models.ltx_video import pipeline as PP
-from candle_video_tpu_torch.ops.quant_linear import Int4Linear
+from candle_video_tpu_torch.ops.quant_linear import Int4Linear, Int8Linear
 
 torch.set_num_threads(2)
 
@@ -120,6 +120,14 @@ def jax_trees_13b_w4(jax_trees):
     return qparams, jax_trees[1], _t5_int8_tree(np.random.default_rng(3), w4=True)
 
 
+@pytest.fixture(scope="module")
+def jax_trees_13b_w8(jax_trees):
+    tparams = JTF.init_params(jax.random.PRNGKey(2), JTF.LtxTransformerConfig(**TF_CFG_13B),
+                              dtype=jnp.float32)
+    qparams = JTF.quantize_transformer_params_w8(tparams, qblock=128)
+    return qparams, jax_trees[1], _t5_int8_tree(np.random.default_rng(3))
+
+
 def _pipelines(jax_trees, inference, tf_cfg=TF_CFG):
     tparams, vparams, t5params = jax_trees
     jcfg = LtxFullConfig(
@@ -135,9 +143,9 @@ def _pipelines(jax_trees, inference, tf_cfg=TF_CFG):
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     ppipe = PP.LtxPipeline(
         config=pcfg,
-        transformer=PCV.transformer_from_jax(to_np(tparams), pcfg.transformer),
-        vae=PCV.vae_decoder_from_jax(to_np(vparams), pcfg.vae),
-        t5=PCV.t5_from_jax(to_np(t5params), PC.T5Config(**T5_CFG)),
+        transformer=PCV.transformer_from_jax(to_np(tparams), pcfg.transformer, device="cpu"),
+        vae=PCV.vae_decoder_from_jax(to_np(vparams), pcfg.vae, device="cpu"),
+        t5=PCV.t5_from_jax(to_np(t5params), PC.T5Config(**T5_CFG), device="cpu"),
         t5_config=PC.T5Config(**T5_CFG), tokenizer=tok)
     return jpipe, ppipe
 
@@ -151,6 +159,19 @@ def test_generate_13b_shaped_w4_matches_jax(jax_trees_13b_w4):
     jpipe, ppipe = _pipelines(jax_trees_13b_w4, DISTILLED_13B, TF_CFG_13B)
     assert isinstance(ppipe.transformer.blocks[0].attn2.to_k, Int4Linear)
     assert isinstance(ppipe.t5.blocks[1].wo, Int4Linear)
+    _check_generate(jpipe, ppipe)
+
+
+@pytest.mark.parametrize("tier", ["w4", "w8"])
+def test_generate_13b_shaped_guided_matches_jax(request, tier):
+    """The 13B-dev request's shape at small width: CFG + STG + rescale rows
+    (num_conds = 3) through the int4 (Q4_K-form T5) or the int8 (int8 T5)
+    DiT tier, STG skipping a block in the perturbed rows only."""
+    jpipe, ppipe = _pipelines(request.getfixturevalue(f"jax_trees_13b_{tier}"), GUIDED,
+                              TF_CFG_13B)
+    linear = Int4Linear if tier == "w4" else Int8Linear
+    assert isinstance(ppipe.transformer.blocks[0].attn2.to_k, linear)
+    assert isinstance(ppipe.t5.blocks[1].wo, linear)
     _check_generate(jpipe, ppipe)
 
 
@@ -371,6 +392,26 @@ def test_port_generate_never_imports_jax(tmp_path):
                          max_sequence_length=16)
         assert out.shape == (1, 3, 5, 16, 16) and torch.isfinite(out).all()
 
+        # the serving runtime (one tiny request through its worker), the
+        # model registry and the debug utilities
+        from candle_video_tpu_torch import serving as S
+        from candle_video_tpu_torch.models import registry
+        from candle_video_tpu_torch.utils import debug
+        server = S.VideoGenerationServer(pipe, [S.ShapeBucket(64, 64, 5, 2)],
+                                         max_sequence_length=16).start()
+        try:
+            out = server.generate_sync(S.Request(prompt_embeds=torch.zeros(1, 16, 64),
+                                                 prompt_attention_mask=torch.ones(1, 16),
+                                                 output_type="latent"), timeout=120)
+        finally:
+            server.stop()
+        assert out.shape == (1, 2 * 2 * 2, 8) and server.stats()["served"] == 1
+        assert registry.available() == ["ltx_video", "svd"]
+        assert isinstance(registry.build_pipeline("ltx_video", config=cfg,
+                                                  transformer=pipe.transformer), P.LtxPipeline)
+        with debug.trace("off"):
+            debug.log("serve", "one request")
+
         # the W4 tiers: int4 DiT block linears, T5 from a Q4_K / Q8_0 GGUF file
         from candle_video_tpu_torch.quant import dequant_np as DQ
         from candle_video_tpu_torch.quant.gguf import write_gguf
@@ -523,7 +564,7 @@ def tiny_cli(monkeypatch, tmp_path):
         (diffusers / sub).mkdir(parents=True)
         PL.save_safetensors(sd, str(diffusers / sub / "diffusion_pytorch_model.safetensors"))
     t5 = PCV.t5_from_jax(jax.tree.map(np.asarray, _t5_int8_tree(np.random.default_rng(1))),
-                         t5cfg)
+                         t5cfg, device="cpu")
     hf = {"shared.weight": t5.embedding, "encoder.final_layer_norm.weight": t5.final_norm,
           "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight": t5.rel_bias}
     for i, blk in enumerate(t5.blocks):

@@ -53,7 +53,7 @@ def _quantize_jax(tree, tier):
 def test_quantized_dit_forward_matches_jax(dense_tree, tier):
     rng = np.random.default_rng(5)
     qtree = _quantize_jax(dense_tree, tier)
-    model = transformer_from_jax(qtree, LtxTransformerConfig(**CFG))
+    model = transformer_from_jax(qtree, LtxTransformerConfig(**CFG), device="cpu")
     mod_type = Int4Linear if tier == "w4" else Int8Linear
     assert isinstance(model.blocks[1].attn2.to_k, mod_type)
     b, s, kv = 2, 1040, 16
@@ -78,7 +78,7 @@ def test_quantized_dit_forward_matches_jax(dense_tree, tier):
 @pytest.mark.parametrize("tier", ["w4", "w8"])
 def test_port_quantizers_give_the_jax_payloads(dense_tree, tier):
     qtree = _quantize_jax(dense_tree, tier)
-    model = transformer_from_jax(dense_tree, LtxTransformerConfig(**CFG))
+    model = transformer_from_jax(dense_tree, LtxTransformerConfig(**CFG), device="cpu")
     if tier == "w4":
         PTF.quantize_transformer_w4(model, qblock=32, scale_dtype=torch.bfloat16)
         names = {"w4": "w4", "w4_scale": "w4_scale", "w4_min": "w4_min", "bias": "bias"}

@@ -67,7 +67,7 @@ def _setup(seed=0, b=2, f=2, h=2, w=4, num_conds=2, enc_scale=0.02):
 
 def _port_loop(inp, guidance, mesh=None):
     """The port's loop, single-process or on ``mesh``, on ``_setup``'s inputs."""
-    model = PCV.transformer_from_jax(inp["tree"], PC.LtxTransformerConfig(**TF_CFG))
+    model = PCV.transformer_from_jax(inp["tree"], PC.LtxTransformerConfig(**TF_CFG), device="cpu")
     schedule = PS.Schedule(sigmas=SIGMAS, timesteps=SIGMAS[:-1] * 1000.0,
                            num_inference_steps=3)
     skip = torch.from_numpy(inp["skip"]) if inp["skip"].any() else None
@@ -223,7 +223,7 @@ def test_generate_sp_refusals():
 
 def test_denoise_loop_sp_refuses_indivisible_shapes():
     inp = _setup()
-    model = PCV.transformer_from_jax(inp["tree"], PC.LtxTransformerConfig(**TF_CFG))
+    model = PCV.transformer_from_jax(inp["tree"], PC.LtxTransformerConfig(**TF_CFG), device="cpu")
     schedule = PS.Schedule(sigmas=SIGMAS, timesteps=SIGMAS[:-1] * 1000.0,
                            num_inference_steps=3)
     args = (model, *map(torch.from_numpy, (inp["hidden"], inp["enc"], inp["mask"])), schedule,

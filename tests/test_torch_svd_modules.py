@@ -177,7 +177,7 @@ def clip_pair():
     params = JC.params_from_hf_state_dict(sd, JCFG.ClipEncoderConfig(**TINY_CLIP), jnp.float32)
     cfg = PCFG.ClipEncoderConfig(**TINY_CLIP)
     return (params, PC.params_from_hf_state_dict(sd, cfg, "cpu"),
-            PCV.clip_from_jax(_tree(params), cfg), hf)
+            PCV.clip_from_jax(_tree(params), cfg, device="cpu"), hf)
 
 
 def test_clip_matches_jax(clip_pair, rng):
@@ -225,7 +225,7 @@ def unet_pair():
     sd = {k: v.numpy() for k, v in mirror.state_dict().items()}
     params = junet(sd, jnp.float32)
     cfg = PCFG.SvdUnetConfig(**UNET)
-    return params, PL.unet_params_from_state_dict(sd, cfg, "cpu"), PCV.unet_from_jax(_tree(params), cfg)
+    return params, PL.unet_params_from_state_dict(sd, cfg, "cpu"), PCV.unet_from_jax(_tree(params), cfg, device="cpu")
 
 
 def test_unet_matches_jax_through_k6_and_k1_routes(unet_pair, rng, monkeypatch):
@@ -293,7 +293,7 @@ def vae_pair():
     params = JV.vae_params_from_state_dict(sd, jnp.float32)
     cfg = PCFG.SvdVaeConfig(**VAE)
     return (params, PV.vae_params_from_state_dict(sd, cfg, "cpu"),
-            PCV.vae_from_jax(_tree(params), cfg))
+            PCV.vae_from_jax(_tree(params), cfg, device="cpu"))
 
 
 def test_vae_encode_matches_jax(vae_pair, rng):

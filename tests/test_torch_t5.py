@@ -83,7 +83,7 @@ def _run_both(tree, stacked: bool, rng):
     jtree = JT5.stack_blocks(tree) if stacked else tree
     want = JT5.forward(jtree, jcfg, jnp.asarray(ids), attention_mask=jnp.asarray(mask))
     np_tree = {k: v for k, v in _to_numpy(jtree).items()}
-    enc = t5_from_jax(np_tree, pcfg)
+    enc = t5_from_jax(np_tree, pcfg, device="cpu")
     got = enc(torch.from_numpy(ids.astype(np.int64)),
               attention_mask=torch.from_numpy(mask.astype(np.float32)))
     return got.detach().numpy(), np.asarray(want)

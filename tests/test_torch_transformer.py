@@ -39,7 +39,7 @@ def _jax_params(seed=0):
 def test_dit_forward_matches_jax(rng, seq, with_mask, skip):
     tree = _jax_params()
     jcfg = JTF.LtxTransformerConfig(**CFG)
-    model = transformer_from_jax(tree, LtxTransformerConfig(**CFG))
+    model = transformer_from_jax(tree, LtxTransformerConfig(**CFG), device="cpu")
     b, k = 2, 12
     x = rng.normal(size=(b, seq, 8)).astype(np.float32)
     enc = rng.normal(size=(b, k, 32)).astype(np.float32)

@@ -55,7 +55,7 @@ def _tree(seed=1):
 def test_decoder_matches_jax(rng, channels_last):
     tree = _tree()
     jcfg, pcfg = JV.LtxVaeConfig(**TINY), LtxVaeConfig(**TINY)
-    dec = vae_decoder_from_jax(tree, pcfg)
+    dec = vae_decoder_from_jax(tree, pcfg, device="cpu")
     z = rng.normal(size=(2, 8, 3, 4, 5)).astype(np.float32)
     temb = np.array([0.05, 0.3], np.float32)
     want = JV.decoder_forward(jax.tree.map(jnp.asarray, tree["decoder"]), jcfg,
@@ -82,7 +82,7 @@ def test_denormalize_and_unsupported_modes(rng):
                   tile_sample_stride_height=16, tile_sample_stride_width=16)
     zt = rng.normal(size=(1, 8, 2, 4, 4)).astype(np.float32)
     with torch.no_grad():
-        tiled = PV.decode(vae_decoder_from_jax(tree, LtxVaeConfig(**TINY)), torch.from_numpy(zt),
+        tiled = PV.decode(vae_decoder_from_jax(tree, LtxVaeConfig(**TINY), device="cpu"), torch.from_numpy(zt),
                           torch.tensor([0.05]), tiling=PV.TilingConfig(**tiling), use_tiling=True)
     jdec = jax.tree.map(jnp.asarray, tree["decoder"])
     want = JV.tiled_decode(None, JV.LtxVaeConfig(**TINY), jnp.asarray(zt),

@@ -78,7 +78,7 @@ def tiny():
     tree = _tree(TINY)
     pcfg = LtxVaeConfig(**TINY)
     return dict(tree=tree, jparams=_jax(tree), jcfg=JV.LtxVaeConfig(**TINY),
-                enc=vae_encoder_from_jax(tree, pcfg), dec=vae_decoder_from_jax(tree, pcfg))
+                enc=vae_encoder_from_jax(tree, pcfg, device="cpu"), dec=vae_decoder_from_jax(tree, pcfg, device="cpu"))
 
 
 def _video(rng, shape):
@@ -95,7 +95,7 @@ def _video(rng, shape):
                          ids=["9f", "B2", "image"])
 def test_encoder_matches_jax(rng, shape, norm_out):
     tree = _tree(TINY, seed=2, norm_out=norm_out)
-    enc = vae_encoder_from_jax(tree, LtxVaeConfig(**TINY))
+    enc = vae_encoder_from_jax(tree, LtxVaeConfig(**TINY), device="cpu")
     assert (enc.norm_out is not None) == norm_out
     x = _video(rng, shape)
     want = np.asarray(JV.encoder_forward(_jax(tree)["encoder"], JV.LtxVaeConfig(**TINY),
@@ -135,7 +135,7 @@ def test_encoder_conv_routes_match_jax(rng, monkeypatch, impl):
     ``CVT_CONV3D_IMPL=igemm``), which takes the eight eligible convs."""
     monkeypatch.setenv("CVT_CONV3D_IMPL", impl)
     tree = _tree(WIDE, seed=3)
-    enc = vae_encoder_from_jax(tree, LtxVaeConfig(**WIDE))
+    enc = vae_encoder_from_jax(tree, LtxVaeConfig(**WIDE), device="cpu")
     calls = []
     route = K8.conv3d_igemm
     monkeypatch.setattr(K8, "conv3d_igemm", lambda *a, **k: calls.append(a[1].shape)
@@ -468,7 +468,7 @@ def test_loader_takes_norm_out_and_optional_downsamplers():
     cfg = dict(TINY, block_out_channels=(8, 16, 16), spatiotemporal_scaling=(True, False),
                spatial_compression_ratio=4, temporal_compression_ratio=2)
     tree = _tree(cfg, seed=5, norm_out=True)
-    enc = vae_encoder_from_jax(tree, LtxVaeConfig(**cfg))
+    enc = vae_encoder_from_jax(tree, LtxVaeConfig(**cfg), device="cpu")
     assert enc.down_blocks[1].downsampler is None and enc.norm_out is not None
     sd = PL.vae_encoder_state_dict(enc)
     assert "encoder.norm_out.weight" in sd
@@ -476,7 +476,7 @@ def test_loader_takes_norm_out_and_optional_downsamplers():
     back = PL.vae_encoder_from_state_dict(sd, LtxVaeConfig(**cfg), device="cpu",
                                           dtype=torch.float32)
     x = np.random.default_rng(2).uniform(-1, 1, size=(1, 3, 5, 8, 8)).astype(np.float32)
-    dec_sd = PL.vae_decoder_state_dict(vae_decoder_from_jax(tree, LtxVaeConfig(**cfg)))
+    dec_sd = PL.vae_decoder_state_dict(vae_decoder_from_jax(tree, LtxVaeConfig(**cfg), device="cpu"))
     jp = vae_params_from_state_dict({k: v.numpy() for k, v in {**sd, **dec_sd}.items()},
                                     jnp.float32)
     assert "norm_out" in jp["encoder"] and "downsamplers" not in jp["encoder"]["down_blocks"][1]

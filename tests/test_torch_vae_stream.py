@@ -46,7 +46,7 @@ def models():
         lambda a: a + rng.normal(size=a.shape).astype(np.float32) * 0.02 if a.ndim == 1 else a,
         tree["decoder"])
     jdec = jax.tree.map(jnp.asarray, tree["decoder"])
-    return jcfg, jdec, vae_decoder_from_jax(tree, LtxVaeConfig(**CFG))
+    return jcfg, jdec, vae_decoder_from_jax(tree, LtxVaeConfig(**CFG), device="cpu")
 
 
 def _z(t, seed=1):

@@ -151,8 +151,8 @@ def dense_tree():
 def test_quantize_transformer_w8a8_gives_the_jax_payloads(dense_tree):
     qtree = jax.tree.map(np.asarray, JTF.quantize_transformer_params(dense_tree))
     model = PTF.quantize_transformer_w8a8(
-        transformer_from_jax(dense_tree, LtxTransformerConfig(**CFG)))
-    carried = transformer_from_jax(qtree, LtxTransformerConfig(**CFG))
+        transformer_from_jax(dense_tree, LtxTransformerConfig(**CFG), device="cpu"))
+    carried = transformer_from_jax(qtree, LtxTransformerConfig(**CFG), device="cpu")
     for i, blk in enumerate(model.blocks):
         for group, name in PTF.QUANTIZED_LINEARS:
             leaf = qtree["blocks"][group][name]
@@ -171,7 +171,7 @@ def test_w8a8_dit_forward_matches_jax(dense_tree):
     rng = np.random.default_rng(6)
     qtree = JTF.quantize_transformer_params(dense_tree)
     model = PTF.quantize_transformer_w8a8(
-        transformer_from_jax(dense_tree, LtxTransformerConfig(**CFG)))
+        transformer_from_jax(dense_tree, LtxTransformerConfig(**CFG), device="cpu"))
     b, s, kv = 2, 96, 16
     x = rng.normal(size=(b, s, 8)).astype(np.float32)
     enc = rng.normal(size=(b, kv, 32)).astype(np.float32)
