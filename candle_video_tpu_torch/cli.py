@@ -26,8 +26,13 @@ Run: python -m candle_video_tpu_torch.cli --weights-path ltxv-2b-0.9.8-distilled
      python -m candle_video_tpu_torch.cli --image first.png --image last.png:12:0.9
      python -m candle_video_tpu_torch.cli --serve --serve-max-batch 2 < prompts.txt
 
-Sequence-parallel ring attention over N GPUs of one host, one process each:
+Sequence-parallel ring attention, tensor parallelism (each GPU holds 1/N of
+the DiT's heads and FF lanes) or the pipelined block stack (GPipe, or
+interleaved with K virtual stages a GPU) over N GPUs of one host, one
+process each:
      torchrun --nproc_per_node=N -m candle_video_tpu_torch.cli --mesh sp=N
+     torchrun --nproc_per_node=N -m candle_video_tpu_torch.cli --mesh tp=N
+     torchrun --nproc_per_node=N -m candle_video_tpu_torch.cli --mesh pp=N[,interleave=K]
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from .models.ltx_video.configs import get_config_by_version, t5_xxl
 from .models.ltx_video.pipeline import LtxPipeline, generate
 from .models.ltx_video.weight_format import detect_format, split_unified_state_dict
 from .models.registry import build_pipeline
-from .parallel import make_mesh
+from .parallel import PipelineMesh, make_mesh, make_pipeline_mesh, shard_transformer
 from .utils.tokenizer import MockTokenizer, T5TokenizerWrapper
 
 
@@ -148,13 +153,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model dtype; the CUDA kernels take bfloat16")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
+    p.add_argument("--attn-impl", type=str, default="auto", choices=["auto", "pallas", "xla"],
+                   help="attention route, as the JAX CLI's: 'auto' and 'pallas' run the "
+                        "CUDA kernels on the GPU; 'xla' (the plain attention) is refused "
+                        "on the GPU, whose path never falls back to a plain version. On "
+                        "the CPU every choice is the plain path")
     p.add_argument("--mesh", type=str, default=None,
-                   help="'sp=N': sequence-parallel ring attention (video tokens shard "
-                        "over N ranks, K/V rotate around the ring), one process per GPU "
-                        "under torchrun (NCCL; gloo with --device cpu); 'sp=1' alone is an "
-                        "ordinary request. dp=M shards the batch, which needs M videos "
-                        "(generate(sp_mesh=make_mesh(dp=M, sp=N))); tp and pp are not "
-                        "yet ported")
+                   help="one process per GPU under torchrun (NCCL; gloo with --device "
+                        "cpu): 'sp=N' sequence-parallel ring attention (video tokens "
+                        "shard over N ranks, K/V rotate around the ring); 'tp=N' tensor "
+                        "parallelism (each rank holds 1/N of the DiT's heads and FF "
+                        "lanes); 'pp=N[,interleave=K]' the DiT's block stack pipelined "
+                        "over N stages (K virtual stages a rank), tp=M beside it cuts "
+                        "each stage over M ranks. 'sp=1', 'tp=1' and 'pp=1' alone are "
+                        "an ordinary request. dp=M shards the batch, which needs M "
+                        "videos")
     return p
 
 
@@ -176,35 +189,45 @@ def parse_image_spec(spec: str) -> tuple:
     return spec, 0, 1.0
 
 
-_MESH_AXES = ("dp", "sp", "tp", "pp")
+_MESH_KEYS = ("dp", "sp", "tp", "pp", "interleave")
 
 
 def parse_mesh(spec: str) -> dict:
-    """'sp=4,dp=2' -> {"dp": 2, "sp": 4, "tp": 1, "pp": 1}; tp > 1 and pp > 1
-    are refused (not yet ported)."""
-    mesh = dict.fromkeys(_MESH_AXES, 1)
+    """'pp=2,interleave=2' -> {"dp": 1, "sp": 1, "tp": 1, "pp": 2,
+    "interleave": 2}, every key defaulting to 1; refuses what the JAX
+    package does not compose (tp with sp, pp with sp) and an interleave
+    without a pipeline."""
+    mesh = dict.fromkeys(_MESH_KEYS, 1)
     for item in spec.split(","):
         key, sep, val = item.partition("=")
         if key.strip() not in mesh or not sep or not val.strip().isdigit() or int(val) < 1:
-            raise SystemExit(f"--mesh {spec!r}: expected comma-separated axis=N with axes "
-                             f"{', '.join(_MESH_AXES)} and N >= 1")
+            raise SystemExit(f"--mesh {spec!r}: expected comma-separated axis=N with keys "
+                             f"{', '.join(_MESH_KEYS)} and N >= 1")
         mesh[key.strip()] = int(val)
-    for axis, item in (("tp", "TP, mesh.py shard_transformer_params"),
-                       ("pp", "PP, parallel/pipeline.py denoise_loop_pp")):
-        if mesh[axis] > 1:
-            raise SystemExit(f"--mesh {axis}={mesh[axis]}: {axis} > 1 is not yet ported "
-                             f"(ROADMAP queue 1, TP and PP: {item})")
+    if mesh["tp"] > 1 and mesh["sp"] > 1:
+        raise SystemExit(f"--mesh {spec!r}: tp and sp cannot be combined in one mesh "
+                         "(weight sharding inside the ring is not wired); use tp=N or sp=N")
+    if mesh["pp"] > 1 and mesh["sp"] > 1:
+        raise SystemExit(f"--mesh {spec!r}: pass at most one of pp and sp")
+    if mesh["interleave"] > 1 and mesh["pp"] == 1:
+        raise SystemExit(f"--mesh {spec!r}: interleave=K splits pipeline stages and needs "
+                         "pp=N with N > 1")
     return mesh
+
+
+def mesh_ranks(mesh: dict) -> int:
+    return mesh["dp"] * mesh["sp"] * mesh["tp"] * mesh["pp"]
 
 
 def init_distributed(mesh: dict, device_name: str):
     """Join the torchrun process group (RANK, WORLD_SIZE, LOCAL_RANK and the
     rendezvous address from the environment), NCCL on the GPU of
-    LOCAL_RANK or gloo on the CPU; returns the (dp, sp) mesh."""
+    LOCAL_RANK or gloo on the CPU; returns the (pp, tp) pipeline mesh when
+    pp > 1, else the (dp, tp) or (dp, sp) mesh."""
     need = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
     if any(k not in os.environ for k in need):
-        n = mesh["dp"] * mesh["sp"]
-        raise SystemExit(f"--mesh with dp x sp = {n} ranks runs one process per GPU: "
+        n = mesh_ranks(mesh)
+        raise SystemExit(f"--mesh of {n} ranks runs one process per GPU: "
                          f"torchrun --nproc_per_node={n} -m candle_video_tpu_torch.cli "
                          "--mesh ...")
     device = resolve_device(device_name)
@@ -214,7 +237,9 @@ def init_distributed(mesh: dict, device_name: str):
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                             rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]))
-    return make_mesh(dp=mesh["dp"], sp=mesh["sp"], device=device)
+    if mesh["pp"] > 1:
+        return make_pipeline_mesh(mesh["pp"], tp=mesh["tp"], device=device)
+    return make_mesh(dp=mesh["dp"], tp=mesh["tp"], sp=mesh["sp"], device=device)
 
 
 _DIT_INITS = {None: TF.init_random, "w8": TF.init_random_w8, "w4": TF.init_random_w4}
@@ -333,14 +358,20 @@ def main(argv=None) -> int:
     if mesh is not None and mesh["dp"] > 1:
         raise SystemExit(f"--mesh dp={mesh['dp']} shards the batch, and the CLI generates "
                          "one video: use dp=1")
-    if mesh is not None and mesh["sp"] > 1:
-        if args.progress or (args.save_final_latents and args.output_type != "latent"):
+    if args.attn_impl == "xla" and torch.device(args.device).type == "cuda":
+        raise SystemExit("--attn-impl xla runs the plain attention, and on the GPU no "
+                         "tensor falls back to a plain version: use auto or pallas (the "
+                         "CUDA kernels), or --device cpu")
+    if mesh is not None and mesh_ranks(mesh) > 1:
+        if (mesh["sp"] > 1 or mesh["pp"] > 1) and (
+                args.progress or (args.save_final_latents and args.output_type != "latent")):
+            mode = "sp" if mesh["sp"] > 1 else "pp"
             raise SystemExit("--progress, and --save-final-latents beside a video, take a "
-                             "step callback, which the sequence-parallel loop does not: "
-                             "drop them with --mesh sp=N")
-        sp_mesh = init_distributed(mesh, args.device)
+                             f"step callback, which the {mode} loop does not: drop them "
+                             f"with --mesh {mode}=N")
+        pmesh = init_distributed(mesh, args.device)
         try:
-            return _run(args, dit_quant, sp_mesh.device, sp_mesh)
+            return _run(args, dit_quant, pmesh.device, pmesh, mesh["interleave"])
         finally:
             dist.destroy_process_group()
     return _run(args, dit_quant, resolve_device(args.device))
@@ -471,17 +502,36 @@ def run_serve(args, pipe) -> int:
     return 0
 
 
-def _run(args, dit_quant, device, sp_mesh=None) -> int:
-    lead = sp_mesh is None or dist.get_rank() == 0  # the rank that prints and saves
+def _describe(mesh, interleave: int) -> str:
+    if isinstance(mesh, PipelineMesh):
+        return (f" | mesh pp={mesh.pp} interleave={interleave} tp={mesh.tp} "
+                "(pipelined block stack)")
+    if mesh.sp > 1:
+        return f" | mesh dp={mesh.dp} sp={mesh.sp} (ring attention)"
+    return f" | mesh dp={mesh.dp} tp={mesh.tp} (tensor parallel)"
+
+
+def _run(args, dit_quant, device, mesh=None, interleave: int = 1) -> int:
+    """One request on ``device``; ``mesh`` (from ``init_distributed``)
+    chooses, in the JAX CLI's order, the pipelined denoise (a pipeline
+    mesh), the ring (sp > 1) or the tensor-parallel DiT."""
+    lead = mesh is None or dist.get_rank() == 0  # the rank that prints and saves
     say = print if lead else (lambda *a, **k: None)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     say(f"candle-video-tpu-torch | preset {args.version} | device {device}"
         + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
         + (f" | DiT weight-only {dit_quant}" if dit_quant else "")
-        + (f" | mesh dp={sp_mesh.dp} sp={sp_mesh.sp} (ring attention)" if sp_mesh else ""))
+        + (_describe(mesh, interleave) if mesh is not None else ""))
     t0 = time.perf_counter()
     pipe = load_pipeline(args, device, dtype)
     say(f"loaded pipeline in {time.perf_counter() - t0:.2f}s")
+    mesh_kw = {}
+    if isinstance(mesh, PipelineMesh):
+        mesh_kw = dict(pp_mesh=mesh, pp_interleave=interleave)
+    elif mesh is not None and mesh.sp > 1:
+        mesh_kw = dict(sp_mesh=mesh)
+    elif mesh is not None:
+        shard_transformer(pipe.transformer, mesh)
     if args.serve:
         return run_serve(args, pipe)
 
@@ -501,7 +551,7 @@ def _run(args, dit_quant, device, sp_mesh=None) -> int:
             for path, frame_index, strength in map(parse_image_spec, args.image)]
     final = {}
     step_callback = None
-    if sp_mesh is None:
+    if not mesh_kw:
         def step_callback(i, n, lat):
             final["latents"] = lat
             if args.progress:
@@ -529,8 +579,7 @@ def _run(args, dit_quant, device, sp_mesh=None) -> int:
                        step_callback=step_callback,
                        vae_tail_stream_chunks=args.vae_stream_chunks,
                        use_vae_tiling=args.vae_tiling, use_vae_slicing=args.vae_slicing,
-                       sp_mesh=sp_mesh,
-                       **kwargs)
+                       **mesh_kw, **kwargs)
     finally:
         if previous is not None:
             signal.signal(signal.SIGINT, previous)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ...ops.rope import rope_cos_sin
+from ...parallel.pipeline import denoise_loop_pp
 from ...parallel.sequence import denoise_loop_sp
 from ...utils import debug
 from ...utils import rng as R
@@ -400,6 +401,9 @@ def generate(
     use_vae_tiling: bool = False,  # spatial and temporal tiling (approximate)
     use_vae_slicing: bool = False,  # decode the batch rows one at a time
     sp_mesh=None,  # parallel.Mesh: the sequence-parallel denoise over its ring
+    pp_mesh=None,  # parallel.PipelineMesh: the DiT's block stack pipelined over it
+    pp_microbatches: Optional[int] = None,
+    pp_interleave: int = 1,
 ):
     """Text- or image-to-video generation.  Returns [B, 3, F, H, W] f32 in
     [0, 255], or the final packed latents [B, S, C] f32 for
@@ -421,11 +425,26 @@ def generate(
 
     ``sp_mesh`` (``parallel.make_mesh``): every rank of the mesh calls
     ``generate`` with the same arguments; the denoise runs sequence-parallel
-    (``parallel.denoise_loop_sp``) and every rank returns the same output."""
+    (``parallel.denoise_loop_sp``) and every rank returns the same output.
+
+    ``pp_mesh`` (``parallel.make_pipeline_mesh``): every rank of the mesh
+    calls ``generate`` with the same arguments; the DiT is cut in place to
+    the rank's stage (``parallel.shard_transformer_pp``, with
+    ``pp_interleave`` virtual chunks a stage) and the denoise runs with its
+    block stack pipelined (``parallel.denoise_loop_pp``, ``pp_microbatches``
+    microbatches of the guidance rows, by default min(rows, pp)).  Every
+    rank returns the same output.  A model cut by
+    ``parallel.shard_transformer`` (tensor parallelism) runs through plain
+    ``generate``."""
     cfg = pipe.config
     inf, tcfg, vcfg = cfg.inference, cfg.transformer, cfg.vae
     device = pipe.device
     stochastic = cfg.scheduler.stochastic_sampling or inf.stochastic_sampling
+    if pp_mesh is not None:
+        if sp_mesh is not None:
+            raise ValueError("pass at most one of pp_mesh / sp_mesh")
+        if pp_mesh.device != device:
+            raise ValueError(f"pp_mesh is on {pp_mesh.device}, the pipeline on {device}")
     if sp_mesh is not None:
         if step_callback is not None:
             raise ValueError("step_callback is not supported in SP mode")
@@ -506,6 +525,8 @@ def generate(
     if image is not None or image_latents is not None:
         conditioning = [ConditioningItem(image=image, latents=image_latents)]
     i2v = bool(conditioning)
+    if i2v and pp_mesh is not None:
+        raise ValueError("image conditioning is not supported in PP mode")
     if i2v:
         cond5 = _conditioning_mask(pipe, conditioning, (eff_batch, 1, lf, lh, lw))
         cond_mask = pack_latents(cond5, tcfg.patch_size, tcfg.patch_size_t)[..., 0]
@@ -592,6 +613,14 @@ def generate(
     elif sp_mesh is not None:
         final = denoise_loop_sp(pipe.transformer, latents, enc_states, enc_mask, schedule,
                                 rope_cos, rope_sin, mesh=sp_mesh, **guidance)
+    elif pp_mesh is not None:
+        if step_callback is not None:
+            raise ValueError("step_callback is not supported in PP mode")
+        final = denoise_loop_pp(pipe.transformer, latents, enc_states, enc_mask, schedule,
+                                rope_cos, rope_sin, mesh=pp_mesh,
+                                num_microbatches=pp_microbatches, interleave=pp_interleave,
+                                stochastic=stochastic, noise_key=R.prng_key(seed + 1),
+                                **guidance)
     else:
         final = denoise_loop(pipe.transformer, latents, enc_states, enc_mask, schedule,
                              rope_cos, rope_sin, stochastic=stochastic,

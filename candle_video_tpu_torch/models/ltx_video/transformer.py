@@ -5,7 +5,12 @@ proj_in → AdaLN-single time embedding → caption projection → N blocks
 cross-attention, tanh-GELU FF) → final scale/shift modulation → proj_out.
 With ``ring`` (a ``torch.distributed`` group, the sequence-parallel loop of
 ``parallel/sequence.py``) the hidden states are this rank's token shard and
-self-attention runs over the ring (``ops/ring.py``, K5 on the card).
+self-attention runs over the ring (``ops/ring.py``, K5 on the card).  A
+model cut by ``parallel.shard_transformer`` holds this rank's heads and FF
+lanes (tensor parallelism); one cut by ``parallel.shard_transformer_pp``
+holds this pipeline stage's layers and runs only through
+``parallel.pipeline_transformer_forward``, which shares ``embed``, the
+blocks and ``finish`` with ``forward``.
 
 The JAX package stacks the blocks as ``[L, ...]`` arrays under ``lax.scan``;
 here they are a ``ModuleList`` walked by a Python loop.  Linear weights are
@@ -25,6 +30,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ...ops.activations import gelu_tanh, silu
@@ -44,12 +50,15 @@ class Attention(nn.Module):
     """LTXVideoAttnProcessor: QK-RMSNorm (eps 1e-5, affine, across the full
     inner dim) → RoPE → SDPA → to_out.  With ``ring``, self-attention rotates
     q and k here and runs over the ring's K/V chunks; cross-attention stays
-    local."""
+    local.  With ``tp_group`` (set by ``parallel.shard_transformer``) the
+    module holds ``heads`` of the model's heads, its lanes of the norms and
+    the RoPE tables it is given, and a row-sharded ``to_out``."""
 
     def __init__(self, cfg: LtxTransformerConfig, dtype):
         super().__init__()
         d = cfg.inner_dim
         self.heads, self.head_dim = cfg.num_attention_heads, cfg.attention_head_dim
+        self.tp_group = None
         self.norm_q = nn.Parameter(torch.empty(d, dtype=dtype))
         self.norm_k = nn.Parameter(torch.empty(d, dtype=dtype))
         self.to_q = nn.Linear(d, d, bias=cfg.attention_bias, dtype=dtype)
@@ -57,12 +66,29 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(d, d, bias=cfg.attention_bias, dtype=dtype)
         self.to_out = nn.Linear(d, d, bias=cfg.attention_out_bias, dtype=dtype)
 
+    def _qk_norm(self, q, k):
+        """The QK-RMSNorm over the full inner dim.  Under tensor parallelism
+        each rank holds 1/tp of the lanes: the f32 sums of squares of q and
+        k, in one tensor, are all-reduced over the tp group and divided by
+        the full width."""
+        if self.tp_group is None:
+            return rms_norm(q, self.norm_q, eps=1e-5), rms_norm(k, self.norm_k, eps=1e-5)
+        qf, kf = q.float(), k.float()
+        sums = torch.cat([qf.square().sum(-1).flatten(), kf.square().sum(-1).flatten()])
+        dist.all_reduce(sums, group=self.tp_group)
+        width = q.shape[-1] * dist.get_world_size(self.tp_group)
+        sq, sk = sums.split([qf[..., 0].numel(), kf[..., 0].numel()])
+        out = []
+        for xf, s, w, x in ((qf, sq, self.norm_q, q), (kf, sk, self.norm_k, k)):
+            ms = s.reshape(xf.shape[:-1] + (1,)) / width
+            out.append((xf / torch.sqrt(ms + 1e-5)).to(x.dtype) * w.to(x.dtype))
+        return out
+
     def forward(self, hidden, encoder_hidden=None, bias=None, rope=None, ring=None):
         b, s, _ = hidden.shape
         enc = hidden if encoder_hidden is None else encoder_hidden
         kv = enc.shape[1]
-        q = rms_norm(self.to_q(hidden), self.norm_q, eps=1e-5)
-        k = rms_norm(self.to_k(enc), self.norm_k, eps=1e-5)
+        q, k = self._qk_norm(self.to_q(hidden), self.to_k(enc))
         v = self.to_v(enc)
         h, hd = self.heads, self.head_dim
         if ring is not None and encoder_hidden is None:
@@ -139,6 +165,11 @@ class LtxTransformer3D(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.scale_shift_table = nn.Parameter(torch.empty(2, d, dtype=dtype))
         self.proj_out = nn.Linear(d, cfg.out_channels or cfg.in_channels, dtype=dtype)
+        # (tp, rank) once parallel.shard_transformer has cut the model; the
+        # pipeline stage's (pp, interleave, stage, layers) once
+        # parallel.shard_transformer_pp has
+        self.tp = None
+        self.pp = None
 
     def _timestep_embedding(self, timestep, dtype):
         """AdaLayerNormSingle: the sinusoid runs on the f32 timestep."""
@@ -146,6 +177,45 @@ class LtxTransformer3D(nn.Module):
         proj = sinusoidal_timestep_embedding(timestep, 256).to(dtype)
         emb = te.linear_2(silu(te.linear_1(proj)))
         return self.time_linear(silu(emb)), emb
+
+    def local_rope(self, rope_cos, rope_sin):
+        """The RoPE tables this rank's heads read: under tensor parallelism
+        its 1/tp of the lanes, contiguous (K1 takes them so).  The tables
+        span the whole inner dim with the ``dim % 6`` pad lanes at the
+        front, so every rank's slice differs."""
+        if self.tp is None:
+            return rope_cos, rope_sin
+        n, rank = self.tp
+        width = rope_cos.shape[-1] // n
+        return tuple(t[..., rank * width:(rank + 1) * width].contiguous()
+                     for t in (rope_cos, rope_sin))
+
+    def embed(self, hidden_states, encoder_hidden_states, timestep,
+              encoder_attention_mask=None):
+        """The pre-block compute: (x [B,S,D], caption states [B,K,D], temb6
+        [B,T,6D], the final modulation's embedding [B,T,D], the caption bias
+        [B,1,1,K] f32 or None), all in the model dtype but the bias."""
+        dtype = self.proj_in.weight.dtype
+        b = hidden_states.shape[0]
+        x = self.proj_in(hidden_states.to(dtype))
+        cp = self.caption_projection
+        enc = cp.linear_2(gelu_tanh(cp.linear_1(encoder_hidden_states.to(dtype))))
+        temb6, emb = self._timestep_embedding(timestep.reshape(-1).float(), dtype)
+        temb6 = temb6.reshape(b, -1, temb6.shape[-1])
+        emb = emb.reshape(b, -1, emb.shape[-1])
+        enc_bias = None
+        if encoder_attention_mask is not None:
+            mask = encoder_attention_mask.float()
+            enc_bias = ((1.0 - mask) * -10000.0)[:, None, None, :].contiguous()
+        return x, enc, temb6, emb, enc_bias
+
+    def finish(self, x, emb):
+        """The post-block compute: the final scale/shift modulation and
+        proj_out."""
+        ss = self.scale_shift_table.to(emb.dtype)[None, None] + emb[:, :, None, :]
+        shift, scale = ss[:, :, 0], ss[:, :, 1]
+        x = layer_norm(x, eps=1e-6) * (1.0 + scale) + shift
+        return self.proj_out(x)
 
     def forward(self, hidden_states, encoder_hidden_states, timestep, rope_cos,
                 rope_sin, encoder_attention_mask=None, skip_layer_mask=None, ring=None):
@@ -156,29 +226,17 @@ class LtxTransformer3D(nn.Module):
         mask [L,B] (1 = skip), ``ring`` the sequence-parallel process group
         (S and the tables are then this rank's shard).  Returns [B,S,C_out]
         in the model dtype."""
-        dtype = self.proj_in.weight.dtype
-        b = hidden_states.shape[0]
-        x = self.proj_in(hidden_states.to(dtype))
-        cp = self.caption_projection
-        enc = cp.linear_2(gelu_tanh(cp.linear_1(encoder_hidden_states.to(dtype))))
-        temb6, emb = self._timestep_embedding(timestep.reshape(-1).float(), dtype)
-        temb6 = temb6.reshape(b, -1, temb6.shape[-1])
-        emb = emb.reshape(b, -1, emb.shape[-1])
-
-        enc_bias = None
-        if encoder_attention_mask is not None:
-            mask = encoder_attention_mask.float()
-            enc_bias = ((1.0 - mask) * -10000.0)[:, None, None, :].contiguous()
-
-        rope = (rope_cos, rope_sin)
+        if self.pp is not None and self.pp[3] != tuple(range(self.cfg.num_layers)):
+            raise ValueError("this model holds one pipeline stage's layers "
+                             "(parallel.shard_transformer_pp): run it through "
+                             "parallel.pipeline_transformer_forward")
+        x, enc, temb6, emb, enc_bias = self.embed(hidden_states, encoder_hidden_states,
+                                                  timestep, encoder_attention_mask)
+        rope = self.local_rope(rope_cos, rope_sin)
         for i, blk in enumerate(self.blocks):
             skip_row = None if skip_layer_mask is None else skip_layer_mask[i]
             x = blk(x, enc, temb6, rope, enc_bias, skip_row, ring)
-
-        ss = self.scale_shift_table.to(emb.dtype)[None, None] + emb[:, :, None, :]
-        shift, scale = ss[:, :, 0], ss[:, :, 1]
-        x = layer_norm(x, eps=1e-6) * (1.0 + scale) + shift
-        return self.proj_out(x)
+        return self.finish(x, emb)
 
 
 def empty_transformer(cfg: LtxTransformerConfig, device, dtype=torch.bfloat16):

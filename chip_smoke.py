@@ -2,7 +2,8 @@
 
 Builds the hand-written CUDA kernels from ``candle_video_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the main paths' shapes (K1
-at the served batch of two and the 13B-dev request's three rows too; all
+at the served batch of two, the 13B-dev request's three rows and one 13B
+tensor-parallel rank's 16 heads too; all
 eight also as copies broken on purpose, which must fail; K3 and K4 also at
 qblocks the kernel is not built for, on their dequant route), then
 drives on random weights, checking the outputs and the kernels' launch
@@ -46,6 +47,14 @@ counts of every request:
   route), 30 steps;
 - the 13B W8A16 tier (int8 T5 → 13B DiT with int8 block linears): one
   request, then the 13B-dev request cut to 4 steps;
+- the dense 13B in bf16 through the multi-GPU paths on the one card:
+  pipeline parallelism in a one-rank NCCL group (the 13B-dev request, 4
+  steps, without the mesh and under ``generate(pp_mesh=
+  make_pipeline_mesh(1), pp_microbatches=3)``: K1 at B = 1 three times a
+  layer), then tensor parallelism at tp=2 as two rank processes sharing
+  the card in a gloo group (the distilled request, 7 steps: each rank's
+  K1 at 16 heads; the ranks bit-equal, rank 0 against the request without
+  the mesh, and one forward against the unsharded one);
 - a full-size official-layout 2B checkpoint (DiT, VAE decoder and
   encoder) written by the port's writer and run through the CLI
   (``--weights-path``) in bf16, in bf16 with ``--image``, ``--dit-int8`` and
@@ -271,6 +280,9 @@ def check_ptxas(card):
     RESULTS["ptxas"] = report
 
 
+TP_K1_CASE = "13B tp=2 rank 1x4992x16x128 rope"
+
+
 def check_k1(card):
     """K1 against its plain version at the paths' shapes (2B, 13B, the SVD
     levels) and at ragged edges: K = 65 and K = 129 (one key past a 128-key
@@ -297,6 +309,9 @@ def check_k1(card):
              # three guidance rows (cond, uncond, STG-perturbed)
              ("serving 2B batch 2x4992x32x64 rope", 2, 4992, 4992, 32, 64, False, True),
              ("13B-dev rows 3x4992x32x128 rope", 3, 4992, 4992, 32, 128, False, True),
+             # one rank of the 13B at tp=2: 16 of the 32 heads, its half of the
+             # full-width tables (rank 0's, which holds the dim % 6 pad lanes)
+             (TP_K1_CASE, 1, 4992, 4992, 16, 128, False, True),
              # the SVD UNet's levels 1 and 2 at 576x1024x14 with CFG (batch 28)
              ("SVD level 1 28x2304x10x64", 28, 2304, 2304, 10, 64, False, False),
              ("SVD level 2 28x576x20x64", 28, 576, 576, 20, 64, False, False)]
@@ -310,7 +325,9 @@ def check_k1(card):
             bias = ((~keep).float() * -10000.0)[:, None, None, :].contiguous()
         rope = None
         if with_rope:
-            if s == 4992:  # the real tables of a 512x768x97 request (inner h·d)
+            if label == TP_K1_CASE:  # rank 0's lanes of the 13B's tables
+                rope = tuple(t[..., :h * d].contiguous() for t in path_rope(13, 2 * h, d, dev))
+            elif s == 4992:  # the real tables of a 512x768x97 request (inner h·d)
                 rope = path_rope(13, h, d, dev)
             else:
                 rope = rope_cos_sin(torch.rand(1, s, 3, generator=g, device=dev), h * d)
@@ -2591,6 +2608,345 @@ def run_13b_w8(card):
     return dev
 
 
+# the parallel phases' request: its seed, and the injected caption states
+# (a prompt of 24 tokens, the rest of the 128 padding)
+PAR_SEED = 91
+PAR_TOKENS = 24
+
+
+def injected_embeddings(seed, negative=False):
+    """Caption states [1, 128, 4096] of std 0.02 and their mask (the first
+    ``PAR_TOKENS`` kept), made on the host from ``seed``: the prompt's and,
+    with ``negative``, a negative prompt's from ``seed + 1``."""
+    def one(sd):
+        g = torch.Generator().manual_seed(sd)
+        mask = torch.zeros(1, 128)
+        mask[:, :PAR_TOKENS] = 1.0
+        return torch.randn(1, 128, 4096, generator=g) * 0.02, mask
+
+    emb, mask = one(seed)
+    kw = dict(prompt_embeds=emb, prompt_attention_mask=mask)
+    if negative:
+        kw["negative_prompt_embeds"], kw["negative_prompt_attention_mask"] = one(seed + 1)
+    return kw
+
+
+@contextlib.contextmanager
+def kept_finals():
+    """The final latents of every ``denoise_loop`` inside the block (the
+    pipelined loop runs it too), in a list."""
+    from candle_video_tpu_torch.models.ltx_video import pipeline as P
+
+    finals, loop = [], P.denoise_loop
+
+    def run(*a, **kw):
+        finals.append(loop(*a, **kw))
+        return finals[-1]
+
+    P.denoise_loop = run
+    try:
+        yield finals
+    finally:
+        P.denoise_loop = loop
+
+
+@contextlib.contextmanager
+def k1_calls():
+    """A Counter of (batch, heads) over the K1 calls inside the block (its
+    launches stay counted by the wrapper)."""
+    from candle_video_tpu_torch.ops.kernels import flash_attention_packed as K1
+
+    calls, fn = collections.Counter(), K1.flash_attention_packed_onepass
+
+    def counted(q, k, v, *, num_heads, **kw):
+        calls[f"B={q.shape[0]} H={num_heads}"] += 1
+        return fn(q, k, v, num_heads=num_heads, **kw)
+
+    K1.flash_attention_packed_onepass = counted
+    try:
+        yield calls
+    finally:
+        K1.flash_attention_packed_onepass = fn
+
+
+def against(row, final, ref_final, video, ref_video, tag, name, card):
+    """Latent rel and video PSNR of a request against its reference, held
+    to ``SLICE_TOL``."""
+    rel = ((final.float().cpu() - ref_final.float().cpu()).norm()
+           / ref_final.float().cpu().norm()).item()
+    row.update(latent_rel=rel, video_psnr=psnr(video.cpu(), ref_video))
+    log(f"[{tag}] {name} against the request without the mesh: latent rel={rel:.3e} "
+        f"video PSNR={row['video_psnr']:.2f} dB | {card}")
+    if not (rel <= SLICE_TOL["latent_rel"] and row["video_psnr"] >= SLICE_TOL["video_psnr"]):
+        raise AssertionError(f"{tag} {name} disagrees with the request without the mesh: "
+                             f"{row}")
+
+
+def run_pp(card, pipe):
+    """Pipeline parallelism in a one-rank NCCL group (``ring_of_one``): the
+    ``0.9.8-13b-dev`` request in bf16 as published (guidance 8, STG 4.0,
+    rescale 0.5, skip blocks 11, 25, 35, 39, a negative prompt: three rows a
+    step), cut to 4 steps, embeddings injected, the streamed tail in 6
+    chunks, on the dense 13B ``pipe``.  Without the mesh: 48 K1 a step at
+    B = 3.  Under ``generate(pp_mesh=make_pipeline_mesh(1),
+    pp_microbatches=3)``: each row is a microbatch, 3 x 48 K1 a step at
+    B = 1; held to ``SLICE_TOL`` against the request without the mesh."""
+    from candle_video_tpu_torch.models.ltx_video.configs import get_config_by_version
+    from candle_video_tpu_torch.parallel import make_pipeline_mesh
+
+    layers, steps = 48, 4
+    want = {"flash_attention_packed": layers * steps, "flash_attention_packed_long": 0,
+            "w8_matmul": 0, "w4_matmul": 0}
+    kw = dict(num_inference_steps=steps, vae_tail_stream_chunks=6,
+              **injected_embeddings(PAR_SEED, negative=True))
+    saved = pipe.config
+    pipe.config = get_config_by_version("0.9.8-13b-dev")
+    try:
+        with ring_of_one(), kept_finals() as finals:
+            with k1_calls() as calls:
+                ref_row, ref = run_request(pipe, "13b-dev no mesh", None, PAR_SEED, want,
+                                           card, tag="pp", **kw)
+            ref_row["k1_calls"] = dict(calls)
+            ref = ref.cpu()
+            want = dict(want, flash_attention_packed=3 * layers * steps)
+            with k1_calls() as calls:
+                row, video = run_request(pipe, "13b-dev pp=1 M=3", None, PAR_SEED, want, card,
+                                         tag="pp", pp_mesh=make_pipeline_mesh(1),
+                                         pp_microbatches=3, **kw)
+            row["k1_calls"] = dict(calls)
+            against(row, finals[-1], finals[0], video, ref, "pp", "pp=1 M=3", card)
+            del video
+    finally:
+        pipe.config = saved
+    if set(ref_row["k1_calls"]) != {"B=3 H=32"} or set(row["k1_calls"]) != {"B=1 H=32"}:
+        raise AssertionError(f"pp: K1 ran at {ref_row['k1_calls']} without the mesh and "
+                             f"{row['k1_calls']} under it")
+    log(f"[pp] step without the mesh {ref_row['denoise_step_mean_ms']:.1f} ms (K1 at B = 3), "
+        f"pp=1 M=3 {row['denoise_step_mean_ms']:.1f} ms (K1 at B = 1, three a layer); peaks "
+        f"{ref_row['peak_gib']:.2f} / {row['peak_gib']:.2f} GiB | {card}")
+    RESULTS["e2e_pp"] = dict(steps=steps, no_mesh=ref_row, pp1_m3=row)
+    return row["launches"]
+
+
+TP = 2
+
+
+def tp_reference(card, pipe):
+    """The ``0.9.8-13b-distilled`` request at 512x768x97 in bf16, 7 steps,
+    embeddings injected, the streamed tail in 6 chunks, without a mesh:
+    48 K1 a step.  Returns its row, final latents and video on the host."""
+    want = {"flash_attention_packed": 7 * 48, "flash_attention_packed_long": 0,
+            "w8_matmul": 0, "w4_matmul": 0}
+    with kept_finals() as finals:
+        row, video = run_request(pipe, "13b no mesh", None, PAR_SEED, want, card, tag="tp",
+                                 vae_tail_stream_chunks=6, **injected_embeddings(PAR_SEED))
+    return row, finals[-1].cpu(), video.cpu()
+
+
+def forward_inputs(dev):
+    """One DiT forward's inputs at the 13B request's shape, from
+    ``PAR_SEED``: latents [1, 4992, 128], the injected caption states and
+    mask, the first step's timestep and the request's RoPE tables."""
+    g = torch.Generator().manual_seed(PAR_SEED)
+    emb = injected_embeddings(PAR_SEED)
+    cos, sin = path_rope(13, 32, 128, dev)
+    return (torch.randn(1, 4992, 128, generator=g).to(dev), emb["prompt_embeds"].to(dev),
+            torch.tensor([1000.0], device=dev), cos, sin,
+            emb["prompt_attention_mask"].to(dev))
+
+
+def dit_forward(transformer, inputs):
+    *args, mask = inputs
+    return transformer(*args, encoder_attention_mask=mask)
+
+
+def f32_partials(self, x):
+    """``RowShardedLinear.forward`` with f32 partials (bf16 operands, the
+    product left in f32 by ``torch.mm(out_dtype=)``), summed in f32 and
+    rounded once after the bias: the alternative to the port's bf16
+    reduction, measured beside it by ``run_tp``."""
+    import torch.distributed as dist
+
+    y = torch.mm(x.reshape(-1, x.shape[-1]), self.weight.t(), out_dtype=torch.float32)
+    dist.all_reduce(y, group=self.group)
+    if self.bias is not None:
+        y = y + self.bias.float()
+    return y.to(x.dtype).reshape(*x.shape[:-1], -1)
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def tp_rank_main(rank, world, tmp):
+    """One rank of ``run_tp``: joins a gloo group through a FileStore in
+    ``tmp``, builds the parent's seeded 13B DiT and VAE on the card (the
+    ranks in turn, each cutting its DiT with ``shard_transformer`` before
+    the next builds, so that two full copies never coexist), runs the
+    request of ``tp_reference`` and writes its results to ``tmp``.  It loads
+    the parent's kernel library and never builds one."""
+    import torch.distributed as dist
+
+    from candle_video_tpu_torch.models.ltx_video import transformer as TF
+    from candle_video_tpu_torch.models.ltx_video import vae as V
+    from candle_video_tpu_torch.models.ltx_video.configs import get_config_by_version
+    from candle_video_tpu_torch.models.ltx_video.pipeline import LtxPipeline, generate
+    from candle_video_tpu_torch.ops.kernels import _build
+    from candle_video_tpu_torch.parallel import make_mesh, shard_transformer
+
+    rank, world = int(rank), int(world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    if not _build.library_path().exists():
+        raise RuntimeError(f"rank {rank}: no kernel library at {_build.library_path()}; the "
+                           "parent builds it before it starts the ranks")
+    _build.lib()
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(tp=world, device=dev)
+        cfg = get_config_by_version("0.9.8-13b-distilled")
+        build = {}
+        for turn in range(world):
+            if turn == rank:
+                t0 = time.perf_counter()
+                torch.cuda.reset_peak_memory_stats()
+                g = torch.Generator(device=dev).manual_seed(0)  # build_random_pipeline's
+                transformer = TF.init_random(cfg.transformer, dev, torch.bfloat16, generator=g)
+                full = resident_gib(transformer)
+                shard_transformer(transformer, mesh)
+                vae = V.init_random(cfg.vae, dev, torch.bfloat16, generator=g)
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                build = dict(build_s=time.perf_counter() - t0, dit_full_gib=full,
+                             dit_shard_gib=resident_gib(transformer),
+                             build_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            dist.barrier()
+        # one forward against the unsharded one: the port's bf16 reduction,
+        # then f32 partials in its place
+        from candle_video_tpu_torch.parallel import RowShardedLinear
+
+        ref_out = torch.load(os.path.join(tmp, "forward.pt"))
+        inputs = forward_inputs(dev)
+        forward = dict(bf16=rel_err(dit_forward(transformer, inputs), ref_out))
+        shipped = RowShardedLinear.forward
+        RowShardedLinear.forward = f32_partials
+        try:
+            forward["f32_partials"] = rel_err(dit_forward(transformer, inputs), ref_out)
+        except (RuntimeError, TypeError) as e:  # torch.mm without out_dtype
+            forward["f32_partials"] = f"not measured: {type(e).__name__}: {e}"[:300]
+        finally:
+            RowShardedLinear.forward = shipped
+        pipe = LtxPipeline(config=cfg, transformer=transformer, vae=vae)
+        times: dict = {}
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with kept_finals() as finals, k1_calls() as calls:
+            video = generate(pipe, height=512, width=768, num_frames=97, seed=PAR_SEED,
+                             stage_times=times, vae_tail_stream_chunks=6,
+                             **injected_embeddings(PAR_SEED))
+        torch.cuda.synchronize()
+        wall, steps = time.perf_counter() - t0, times["denoise_steps"]
+        torch.save(dict(rank=rank, latents=finals[-1].cpu(),
+                        video=video.cpu() if rank == 0 else None,
+                        launches=dict(_build.LAUNCHES), k1_calls=dict(calls), wall_s=wall,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                        denoise_step_ms=[1e3 * x for x in steps],
+                        denoise_step_mean_ms=1e3 * sum(steps) / len(steps),
+                        vae_decode_s=times["vae_decode"], forward_rel=forward, **build),
+                   os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_tp(card, ref_row, ref_final, ref_video, ref_forward):
+    """Tensor parallelism at tp=2 on the one card: two rank processes share
+    it in a gloo group (its all-reduce stages CUDA tensors through the
+    host), each with 16 of the 13B's 32 heads and half the FF lanes
+    (``tp_rank_main``).  Each must launch exactly 48 K1 a step, all at B = 1
+    and 16 heads; the two ranks' final latents must be bit-equal, and rank
+    0's latents and video within ``SLICE_TOL`` of ``tp_reference``'s.  Each
+    rank also runs one forward against the unsharded one (``ref_forward``)
+    with the port's bf16 reduction and with f32 partials in its place."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(ref_forward, os.path.join(tmp, "forward.pt"))
+        env = dict(os.environ, PYTHONPATH=REPO, PYTHONFAULTHANDLER="1")
+        code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke as C; "
+                "C.tp_rank_main(*sys.argv[1:])")
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(TP)]
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for r in range(TP):
+                with open(logs[r], "w") as f:
+                    procs.append(subprocess.Popen([sys.executable, "-c", code, str(r), str(TP),
+                                                   tmp], cwd=REPO, env=env, stdout=f,
+                                                  stderr=subprocess.STDOUT))
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r in range(TP):
+            with open(logs[r]) as f:
+                tail = f.read()[-3000:]
+            if rcs[r] != 0:
+                raise AssertionError(f"tp rank {r} failed (rc {rcs[r]}):\n{tail}")
+        rows = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(TP)]
+    want = 7 * 48
+    for row in rows:
+        k1 = row["launches"].get("flash_attention_packed", 0)
+        if k1 != want or row["k1_calls"] != {"B=1 H=16": want} or \
+                row["launches"].get("flash_attention_packed_long", 0):
+            raise AssertionError(f"tp rank {row['rank']}: launches {row['launches']}, K1 calls "
+                                 f"{row['k1_calls']}, want {want} K1 at B=1 H=16")
+    if not all(torch.equal(row["latents"], rows[0]["latents"]) for row in rows[1:]):
+        raise AssertionError("tp: the ranks' final latents differ")
+    video = rows[0].pop("video")
+    against(rows[0], rows[0]["latents"], ref_final, video, ref_video, "tp", "tp=2 rank 0", card)
+    for row in rows:
+        row.pop("latents", None)
+        row.pop("video", None)
+        log(f"[tp] rank {row['rank']}: {row['launches']} K1 calls {row['k1_calls']}; built in "
+            f"{row['build_s']:.2f} s (DiT {row['dit_full_gib']:.2f} -> {row['dit_shard_gib']:.2f} "
+            f"GiB, build peak {row['build_peak_gib']:.2f} GiB); request {row['wall_s']:.2f} s, "
+            f"step mean {row['denoise_step_mean_ms']:.1f} ms (steps "
+            f"{', '.join(f'{x:.1f}' for x in row['denoise_step_ms'])}), decode "
+            f"{row['vae_decode_s']:.2f} s, peak {row['peak_gib']:.2f} GiB: two processes "
+            f"time-sharing one card, reductions staged through the host; one forward against "
+            f"the unsharded one: rel {row['forward_rel']} | {card}")
+    log(f"[tp] ranks bit-equal; the phase took {wall:.1f} s (the ranks' start, build and "
+        f"request); the request without the mesh: step mean "
+        f"{ref_row['denoise_step_mean_ms']:.1f} ms | {card}")
+    RESULTS["e2e_tp"] = dict(tp=TP, no_mesh=ref_row, ranks=rows, phase_s=wall)
+    return rows[0]["launches"]
+
+
+def run_parallel(card):
+    """The dense 13B in bf16 (``0.9.8-13b-distilled`` weights, from seed 0
+    as every phase's): ``run_pp`` on the 13B-dev request, the tp=2
+    reference request, then the pipeline is released and ``run_tp`` starts
+    the ranks."""
+    pipe, gib = build_pipeline("13b-bf16", card, "0.9.8-13b-distilled")
+    launches_pp = run_pp(card, pipe)
+    ref = tp_reference(card, pipe)
+    ref_forward = dit_forward(pipe.transformer, forward_inputs(torch.device("cuda"))).cpu()
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    RESULTS["e2e_13b_bf16_resident_gib"] = gib
+    return launches_pp, run_tp(card, *ref, ref_forward)
+
+
 SVD_TINY = dict(
     unet=dict(in_channels=8, out_channels=4, block_out_channels=(64, 128), layers_per_block=1,
               cross_attention_dim=64, num_attention_heads=(1, 2), addition_time_embed_dim=8,
@@ -3122,6 +3478,7 @@ def main(argv=None) -> int:
     launches_serving = run_serving(card)
     launches_13b, launches_dev_w4 = run_13b_w4(card)
     launches_dev_w8 = run_13b_w8(card)
+    launches_pp, launches_tp = run_parallel(card)
     run_checkpoint(card)
     run_cli(card)
     k6 = check_k6(card)
@@ -3159,7 +3516,9 @@ def main(argv=None) -> int:
         "t2v 2B 97f": launches["flash_attention_packed"],
         "i2v 2B 97f": launches_i2v["flash_attention_packed"],
         "serving 2B 97f b2": launches_serving["flash_attention_packed"],
-        "13b-dev w4 97f": launches_dev_w4["flash_attention_packed"]}
+        "13b-dev w4 97f": launches_dev_w4["flash_attention_packed"],
+        "13b tp=2 rank 97f": launches_tp["flash_attention_packed"],
+        "13b-dev pp=1 M=3 97f": launches_pp["flash_attention_packed"]}
     # K3 and K4 on the 13B-dev request (W8 at 4 steps, W4 at 30)
     kernels[2]["launches_by_path"] = {"t2v 2B 97f": launches["w8_matmul"],
                                       "13b-dev": launches_dev_w8["w8_matmul"]}

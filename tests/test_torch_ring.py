@@ -438,5 +438,7 @@ def test_ring_refusals():
         ring_attention(q, q, q, 0.3, mesh)
     with pytest.raises(ValueError, match="not divisible"):
         sequence_parallel_attention(q, q, q, 0.3, mesh)
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="cannot be combined"):
+        make_mesh(tp=2, sp=2)
+    with pytest.raises(RuntimeError, match="initialised torch.distributed process group"):
         make_mesh(tp=2)

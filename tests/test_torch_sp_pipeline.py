@@ -11,7 +11,7 @@ f32, in gloo worlds of 4 ranks and of 1.
   port's ring loop equals its single-process loop there too.
 - ``generate(sp_mesh=make_mesh(sp=1))`` equals ``generate()`` in a ring of
   one; the refusals (stochastic sampling, ``step_callback``, S % sp,
-  B % dp, tp > 1, pp > 1, ``--mesh`` with ``--dit-int4``).
+  B % dp, tp with sp, pp with sp, ``--mesh`` with ``--dit-int4``).
 
 Ranks run as in ``test_torch_ring.py``: subprocesses that import only the
 port and assert it.
@@ -235,8 +235,8 @@ def test_denoise_loop_sp_refuses_indivisible_shapes():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "tp=2"], "tp > 1 is not yet ported"),
-    (["--mesh", "sp=2,pp=2"], "pp > 1 is not yet ported"),
+    (["--mesh", "sp=2,tp=2"], "cannot be combined"),
+    (["--mesh", "sp=2,pp=2"], "at most one of pp and sp"),
     (["--mesh", "sp=2", "--dit-int4"], "does not compose with --mesh"),
     (["--mesh", "sp=2", "--dit-int8"], "does not compose with --mesh"),
     (["--mesh", "sp=2,dp=2"], "one video"),
@@ -253,14 +253,15 @@ def test_cli_mesh_refusals(argv, match, monkeypatch):
 
 
 def test_cli_parse_mesh():
-    assert PCLI.parse_mesh("sp=4") == {"dp": 1, "sp": 4, "tp": 1, "pp": 1}
-    assert PCLI.parse_mesh("sp=1,dp=1") == {"dp": 1, "sp": 1, "tp": 1, "pp": 1}
+    assert PCLI.parse_mesh("sp=4") == {"dp": 1, "sp": 4, "tp": 1, "pp": 1, "interleave": 1}
+    assert PCLI.parse_mesh("sp=1,dp=1") == {"dp": 1, "sp": 1, "tp": 1, "pp": 1,
+                                             "interleave": 1}
 
 
 def test_make_mesh_takes_the_jax_axis_order():
     """``make_mesh(dp, tp, sp)`` as the JAX ``make_mesh``: a positional call
     means the same mesh in both packages (``make_mesh(1, 4)`` asks for
-    tp = 4, which the port refuses until TP is ported)."""
+    tp = 4, which needs an initialised process group)."""
     import inspect
 
     from candle_video_tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -268,5 +269,5 @@ def test_make_mesh_takes_the_jax_axis_order():
     names = list(inspect.signature(make_mesh).parameters)
     assert names[:3] == ["dp", "tp", "sp"]
     assert names[:3] == list(inspect.signature(jax_make_mesh).parameters)[:3]
-    with pytest.raises(ValueError, match="tensor parallelism"):
+    with pytest.raises(RuntimeError, match="initialised torch.distributed process group"):
         make_mesh(1, 4)
