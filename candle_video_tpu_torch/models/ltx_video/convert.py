@@ -140,7 +140,8 @@ def transformer_from_jax(tree, cfg: LtxTransformerConfig, device="cuda", dtype=N
 @torch.no_grad()
 def vae_decoder_from_jax(tree, cfg: LtxVaeConfig, device="cuda", dtype=None):
     """JAX VAE tree (``decoder`` plus ``latents_mean``/``latents_std``) ->
-    LtxVaeDecoder."""
+    LtxVaeDecoder.  A resnet's ``per_channel_scale1/2`` go into the scales
+    ``cfg.decoder_inject_noise`` makes; scales without a place raise."""
     device = loader_device(device)
     dec = tree["decoder"]
     dtype = dtype or _dtype_of(dec["conv_in"]["weight"])

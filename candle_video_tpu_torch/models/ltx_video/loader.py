@@ -396,11 +396,12 @@ def vae_decoder_from_state_dict(sd, cfg: LtxVaeConfig, device="cuda", dtype=torc
     ``timestep_scale_multiplier`` (f32) and ``latents_mean`` /
     ``latents_std`` (f32).  Encoder tensors are skipped.  A file without
     the multiplier or the statistics leaves them at 1, 0 and 1 (the JAX
-    decoder then does not scale; the statistics are identity).
-    ``per_channel_scale1/2`` (with or without ``.weight``) are read past:
-    they scale the noise injection, which the port's decoder does not do,
-    as JAX's does not without a noise key.  A decoder whose block or resnet
-    counts differ from ``cfg``'s, or that holds other tensors, raises."""
+    decoder then does not scale; the statistics are identity).  The noise
+    injection's ``per_channel_scale1/2`` are read with or without
+    ``.weight``, into the resnets that ``cfg.decoder_inject_noise`` gives
+    them (JAX ``_resnet_params``).  A decoder whose block or resnet counts
+    differ from ``cfg``'s, or that holds other tensors (scales included),
+    raises."""
     device = loader_device(device)
     model = V.empty_decoder(cfg, device, dtype)
     found = _decoder_structure(sd)
@@ -413,10 +414,16 @@ def vae_decoder_from_state_dict(sd, cfg: LtxVaeConfig, device="cuda", dtype=torc
     absent = {n for n in optional if vae_checkpoint_name(n) not in sd}
     for name in absent:
         getattr(model, name).fill_(optional[name])
-    _fill(model, sd, vae_checkpoint_name, skip=absent)
-    read = {vae_checkpoint_name(k) for k in model.state_dict()}
-    extra = sorted(k for k in sd if k.startswith("decoder.") and k not in read
-                   and ".per_channel_scale" not in k)
+
+    def checkpoint_name(name):
+        key = vae_checkpoint_name(name)
+        if ".per_channel_scale" in key and key not in sd and f"{key}.weight" in sd:
+            return f"{key}.weight"
+        return key
+
+    _fill(model, sd, checkpoint_name, skip=absent)
+    read = {checkpoint_name(k) for k in model.state_dict()}
+    extra = sorted(k for k in sd if k.startswith("decoder.") and k not in read)
     if extra:
         raise LoaderError(f"the file's decoder holds tensors the config's decoder has no "
                           f"place for: {extra[:5]}{' ...' if len(extra) > 5 else ''}")

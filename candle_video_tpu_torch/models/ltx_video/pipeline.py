@@ -15,13 +15,14 @@ statistics and mixed into the initial latents at its frame with its
 strength; ``denoise_loop_i2v`` then runs each token at its own timestep
 ``t·(1 - strength)`` and holds the tokens below their noise floor.
 
-Every seeded draw follows the JAX package's key sequence and is made on the
-host (``utils/rng.py``), so one seed gives the JAX package's numbers on the
-CPU and on the card: the initial latents (PCG32, or ``PRNGKey(seed)`` with
-``use_pcg_rng=False``), the stochastic step noise (``PRNGKey(seed + 1)``,
-split once per step), the decode noise (``PRNGKey(seed + 2)``) and anchor
-``idx``'s posterior sample (``PRNGKey(seed + 3 + idx)``, in the encoder's
-dtype).
+Every seeded draw follows the JAX package's key sequence, so one seed gives
+the JAX package's numbers on the CPU and on the card: the initial latents
+(PCG32 on the host, or ``PRNGKey(seed)`` with ``use_pcg_rng=False``), the
+stochastic step noise (``PRNGKey(seed + 1)``, split once per step), the
+decode noise (``PRNGKey(seed + 2)``) and anchor ``idx``'s posterior sample
+(``PRNGKey(seed + 3 + idx)``, in the encoder's dtype).  The ``jax.random``
+draws are made where the latents live (``utils/rng.normal_on``: R1 on the
+card); keys are split on the host.
 """
 
 from __future__ import annotations
@@ -120,6 +121,14 @@ def prepare_decode(final, mean, std, noise, noise_scale, *, num_frames: int,
     return lat5
 
 
+def _initial_noise(seed: int, shape, use_pcg_rng: bool, device):
+    """The initial latents' noise: PCG32 on the host, uploaded, or
+    ``jax.random.normal(PRNGKey(seed))`` drawn on ``device``."""
+    if use_pcg_rng:
+        return torch.from_numpy(R.Pcg32(seed, 0).randn(shape)).to(device)
+    return R.normal_on(R.prng_key(seed), shape, device=device)
+
+
 def denoise_loop(transformer, latents, encoder_hidden_states, encoder_attention_mask,
                  schedule: S.Schedule, rope_cos, rope_sin, *, num_conds: int = 1,
                  guidance_scale: float = 1.0, guidance_rescale: float = 0.0,
@@ -154,7 +163,7 @@ def denoise_loop(transformer, latents, encoder_hidden_states, encoder_attention_
         noise = None
         if stochastic:
             key, sub = R.split(key)
-            noise = torch.from_numpy(R.normal(sub, lat.shape)).to(lat.device)
+            noise = R.normal_on(sub, lat.shape, device=lat.device)
         lat = S.step(lat, combined, sigma, sigma_next, stochastic=stochastic, noise=noise)
         if step_seconds is not None:
             _sync(lat.device)
@@ -533,8 +542,7 @@ def generate(
     if latents is None and i2v:
         with timer.stage("anchor_encode"):
             shape = (eff_batch, tcfg.in_channels, lf, lh, lw)
-            noise5 = torch.from_numpy(R.Pcg32(seed, 0).randn(shape) if use_pcg_rng
-                                      else R.normal(R.prng_key(seed), shape)).to(device)
+            noise5 = _initial_noise(seed, shape, use_pcg_rng, device)
             init5 = torch.zeros(shape, dtype=torch.float32, device=device)
             for idx, item in enumerate(conditioning):
                 init5[:, :, item.frame_index:item.frame_index + 1] = _anchor_latents(
@@ -544,9 +552,7 @@ def generate(
             latents = pack_latents(lat5, tcfg.patch_size, tcfg.patch_size_t)
     elif latents is None:
         shape = (eff_batch, tcfg.in_channels, lf, lh, lw)
-        lat5 = (R.Pcg32(seed, 0).randn(shape) if use_pcg_rng
-                else R.normal(R.prng_key(seed), shape))
-        lat5 = torch.from_numpy(lat5).to(device)
+        lat5 = _initial_noise(seed, shape, use_pcg_rng, device)
         latents = pack_latents(lat5, tcfg.patch_size, tcfg.patch_size_t)
     else:
         latents = _as_tensor(latents, device, torch.float32)
@@ -650,7 +656,7 @@ def generate(
             if decode_noise is not None:
                 noise = _as_tensor(decode_noise, device, torch.float32)
             else:
-                noise = torch.from_numpy(R.normal(R.prng_key(seed + 2), shape)).to(device)
+                noise = R.normal_on(R.prng_key(seed + 2), shape, device=device)
         lat5 = prepare_decode(final, pipe.vae.latents_mean, pipe.vae.latents_std, noise,
                               scale, num_frames=lf, height=lh, width=lw,
                               patch_size=tcfg.patch_size, patch_size_t=tcfg.patch_size_t,

@@ -39,8 +39,17 @@ slicing, then temporal tiling, then spatial tiling, then the direct call);
 each decode tile runs the exact mode asked for.  One deliberate difference:
 ``decode`` is dense by default (``use_tiling=False``,
 ``use_framewise_decoding=False``), where the JAX facade defaults both to
-True; ``generate()`` passes both, as the JAX ``generate`` does.  Decoder
-noise injection and the JAX channels-last encoder twin are not ported.
+True; ``generate()`` passes both, as the JAX ``generate`` does.  The JAX
+channels-last encoder twin is not ported.
+
+Noise injection (``cfg.decoder_inject_noise``, one flag for the mid block
+and each up block, in the config's order, which the decoder reverses as it
+does its other lists): those blocks' resnets carry ``per_channel_scale1/2``
+and, when a walk is given ``noise_key`` (a ``utils.rng`` key), add
+per-channel scaled ``[H, W]`` noise after each of their two convs, drawn in
+the activation's dtype where it lives (R1 on the card).  As in the JAX
+package every resnet starts from the same ``noise_key`` (split once before
+each of its two draws), and ``decode`` passes none.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from ...ops.activations import silu
 from ...ops.conv3d import causal_conv3d
 from ...ops.embeddings import sinusoidal_timestep_embedding
 from ...ops.norms import rms_norm
+from ...utils import rng as R
 from .configs import LtxVaeConfig
 
 
@@ -91,24 +101,40 @@ def _same(x):
     return x
 
 
+def _inject_noise(h, key, scale):
+    """h + noise·scale: one ``[H, W]`` draw in h's dtype from the second half
+    of ``split(key)``, shared by every batch row, channel and frame, scaled
+    per channel.  Returns (h, the first half of the split)."""
+    key, sub = R.split(key)
+    noise = R.normal_on(sub, h.shape[-2:], h.dtype, h.device)
+    return h + noise * _ch(scale.reshape(1, -1).to(h.dtype)), key
+
+
 class ResnetBlock(nn.Module):
     """LtxVideoResnetBlock3d with a per-block [4, C] scale/shift table
-    (``conditioned``).  The encoder's and the decoder's resnets keep their
-    width, so there is no shortcut conv.
+    (``conditioned``) and, with ``inject_noise``, the [C, 1, 1] scales of
+    the noise added after each conv.  The encoder's and the decoder's
+    resnets keep their width, so there is no shortcut conv.
 
     ``conv1``/``conv2`` (h -> y) and ``align`` (x -> x) replace the block
     convs and the identity shortcut in the streamed walks."""
 
-    def __init__(self, c: int, dtype, conditioned: bool):
+    def __init__(self, c: int, dtype, conditioned: bool, inject_noise: bool = False):
         super().__init__()
         self.conv1 = Conv3d(c, c, 3, dtype)
         self.conv2 = Conv3d(c, c, 3, dtype)
         self.scale_shift_table = (nn.Parameter(torch.empty(4, c, dtype=dtype))
                                   if conditioned else None)
+        self.per_channel_scale1 = self.per_channel_scale2 = None
+        if inject_noise:
+            self.per_channel_scale1 = nn.Parameter(torch.empty(c, 1, 1, dtype=dtype))
+            self.per_channel_scale2 = nn.Parameter(torch.empty(c, 1, 1, dtype=dtype))
 
-    def forward(self, x, temb, causal: bool, conv1=None, conv2=None, align=_same):
+    def forward(self, x, temb, causal: bool, conv1=None, conv2=None, align=_same,
+                noise_key=None):
         conv1 = conv1 or (lambda y: self.conv1(y, causal))
         conv2 = conv2 or (lambda y: self.conv2(y, causal))
+        inject = self.per_channel_scale1 is not None and noise_key is not None
         h = rms_norm(x, eps=1e-8, dim=1)
         mods = None
         if self.scale_shift_table is not None and temb is not None:
@@ -117,10 +143,15 @@ class ResnetBlock(nn.Module):
         if mods:
             h = h * (1.0 + mods[1]) + mods[0]
         h = conv1(silu(h))
+        if inject:
+            h, noise_key = _inject_noise(h, noise_key, self.per_channel_scale1)
         h = rms_norm(h, eps=1e-8, dim=1)
         if mods:
             h = h * (1.0 + mods[3]) + mods[2]
-        return align(x) + conv2(silu(h))
+        h = conv2(silu(h))
+        if inject:
+            h, _ = _inject_noise(h, noise_key, self.per_channel_scale2)
+        return align(x) + h
 
 
 def _depth_to_space(y, st: int, sh: int, sw: int):
@@ -190,24 +221,25 @@ class LtxVaeDecoder(nn.Module):
 
     def __init__(self, cfg: LtxVaeConfig, dtype=torch.bfloat16):
         super().__init__()
-        if any(cfg.decoder_inject_noise):
-            raise NotImplementedError(
-                "the port's decoder has no noise injection; decoder_inject_noise "
-                "must be all False")
         self.cfg = cfg
         tc = cfg.timestep_conditioning
         boc, sts, upr, upf = self.geometry()
         lpb = list(cfg.decoder_layers_per_block)[::-1]
+        inj = list(cfg.decoder_inject_noise)[::-1]
+        if any(inj) and len(inj) < len(boc) + 1:
+            raise ValueError(f"decoder_inject_noise {cfg.decoder_inject_noise} needs a flag "
+                             f"for the mid block and each of the {len(boc)} up blocks")
+        inj = inj + [False] * (len(boc) + 1 - len(inj))
         self.conv_in = Conv3d(cfg.latent_channels, boc[0], 3, dtype)
         self.mid_block = Block(
-            [ResnetBlock(boc[0], dtype, tc) for _ in range(lpb[0])],
+            [ResnetBlock(boc[0], dtype, tc, inj[0]) for _ in range(lpb[0])],
             TimeEmbedder(boc[0] * 4, dtype) if tc else None)
         ups = []
         for i in range(len(boc)):
             out_ch = boc[i] // upf[i]
             sp = 8 if sts[i] else 4
             ups.append(Block(
-                [ResnetBlock(out_ch, dtype, tc) for _ in range(lpb[i + 1])],
+                [ResnetBlock(out_ch, dtype, tc, inj[i + 1]) for _ in range(lpb[i + 1])],
                 TimeEmbedder(out_ch * 4, dtype) if tc else None,
                 Upsampler(out_ch * upf[i], out_ch * sp, dtype)))
         self.up_blocks = nn.ModuleList(ups)
@@ -282,45 +314,49 @@ class LtxVaeDecoder(nn.Module):
         h = walk.conv("conv_out", self.conv_out, silu(h))
         return _unpatchify(h, cfg.patch_size, cfg.patch_size_t)
 
-    def forward(self, z, temb=None):
+    def forward(self, z, temb=None, noise_key=None):
         """Dense decode: z [B, latent, F, H, W], temb [B] decode timesteps or
-        None -> video [B, 3, (F-1)·8+1, H·32, W·32] in about [-1, 1].  The
-        head's output is handed straight to the tail walk, which drops it
-        after the first resnet."""
-        walk = _BlockWalk(self.cfg.decoder_causal)
+        None, ``noise_key`` the injection's key or None -> video [B, 3,
+        (F-1)·8+1, H·32, W·32] in about [-1, 1].  The head's output is
+        handed straight to the tail walk, which drops it after the first
+        resnet."""
+        walk = _BlockWalk(self.cfg.decoder_causal, noise_key)
         return self.tail_walk(self.head_walk(z, temb, "tail", walk), temb, walk)
 
 
 class _BlockWalk:
     """The dense walk: every conv pads time itself."""
 
-    def __init__(self, causal: bool):
+    def __init__(self, causal: bool, noise_key=None):
         self.causal = causal
+        self.noise_key = noise_key
 
     def conv(self, site, m: Conv3d, h):
         return m(h, self.causal)
 
     def resnet(self, site, m: ResnetBlock, h, temb):
-        return m(h, temb, self.causal)
+        return m(h, temb, self.causal, noise_key=self.noise_key)
 
     def upsampler(self, site, m: Upsampler, h, stride, residual, reps):
         return m(h, stride, residual, reps, self.causal)
 
 
-def decoder_head_forward(decoder: LtxVaeDecoder, z, temb=None):
+def decoder_head_forward(decoder: LtxVaeDecoder, z, temb=None, noise_key=None):
     """conv_in → mid → up blocks, through the last upsampler."""
-    return decoder.head_walk(z, temb, "tail", _BlockWalk(decoder.cfg.decoder_causal))
+    return decoder.head_walk(z, temb, "tail",
+                             _BlockWalk(decoder.cfg.decoder_causal, noise_key))
 
 
-def decoder_head_pre_ups_forward(decoder: LtxVaeDecoder, z, temb=None):
+def decoder_head_pre_ups_forward(decoder: LtxVaeDecoder, z, temb=None, noise_key=None):
     """The head stopped before the last upsampler: it runs at half the final
     resolution or less."""
-    return decoder.head_walk(z, temb, "last_ups", _BlockWalk(decoder.cfg.decoder_causal))
+    return decoder.head_walk(z, temb, "last_ups",
+                             _BlockWalk(decoder.cfg.decoder_causal, noise_key))
 
 
-def decoder_tail_forward(decoder: LtxVaeDecoder, h, temb=None):
+def decoder_tail_forward(decoder: LtxVaeDecoder, h, temb=None, noise_key=None):
     """The last block's resnets, the output modulation, conv_out, unpatchify."""
-    return decoder.tail_walk(h, temb, _BlockWalk(decoder.cfg.decoder_causal))
+    return decoder.tail_walk(h, temb, _BlockWalk(decoder.cfg.decoder_causal, noise_key))
 
 
 # ---------------------------------------------------------------------------
@@ -341,10 +377,11 @@ class _StreamWalk:
     """One streaming step ("first", "mid", "last" or "single") that reads
     and updates the carried frames in ``state``."""
 
-    def __init__(self, state: dict, mode: str):
+    def __init__(self, state: dict, mode: str, noise_key=None):
         self.state = state
         self.first = mode in ("first", "single")
         self.last = mode in ("last", "single")
+        self.noise_key = noise_key
 
     def conv(self, site, m: Conv3d, x):
         base = x if self.first else torch.cat([self.state.pop(site), x], dim=2)
@@ -366,7 +403,7 @@ class _StreamWalk:
         """Two one-frame conv delays; the shortcut delayed two frames."""
         return m(h, temb, False, conv1=lambda y: self.conv(f"{site}.c1", m.conv1, y),
                  conv2=lambda y: self.conv(f"{site}.c2", m.conv2, y),
-                 align=lambda y: self.delay(f"{site}.sc", y, 2))
+                 align=lambda y: self.delay(f"{site}.sc", y, 2), noise_key=self.noise_key)
 
     def upsampler(self, site, m: Upsampler, h, stride, residual, reps):
         """A one-frame conv delay, the residual delayed one input frame, and
@@ -384,28 +421,31 @@ def _refuse_causal(decoder):
             "decoder_causal configs decode densely")
 
 
-def decoder_head_stream(decoder: LtxVaeDecoder, z, state: dict, mode: str, temb=None):
+def decoder_head_stream(decoder: LtxVaeDecoder, z, state: dict, mode: str, temb=None,
+                        noise_key=None):
     """One streaming step of the head over the next chunk of latent frames."""
     _refuse_causal(decoder)
-    return decoder.head_walk(z, temb, "tail", _StreamWalk(state, mode))
+    return decoder.head_walk(z, temb, "tail", _StreamWalk(state, mode, noise_key))
 
 
-def decoder_tail_stream(decoder: LtxVaeDecoder, h, state: dict, mode: str, temb=None):
+def decoder_tail_stream(decoder: LtxVaeDecoder, h, state: dict, mode: str, temb=None,
+                        noise_key=None):
     """One streaming step of the tail: ``h`` [B,C,t,H,W] is the next chunk
     of the head's output; the video chunk has t - delay / t / t + delay
     frames for the first / middle / last step (delay: ``tail_stream_delay``)."""
     _refuse_causal(decoder)
-    return decoder.tail_walk(h, temb, _StreamWalk(state, mode))
+    return decoder.tail_walk(h, temb, _StreamWalk(state, mode, noise_key))
 
 
-def decoder_ups_tail_stream(decoder: LtxVaeDecoder, h, state: dict, mode: str, temb=None):
+def decoder_ups_tail_stream(decoder: LtxVaeDecoder, h, state: dict, mode: str, temb=None,
+                            noise_key=None):
     """One streaming step of the last upsampler and the tail, over a chunk of
     ``decoder_head_pre_ups_forward``'s output."""
     _refuse_causal(decoder)
     i = len(decoder.up_blocks) - 1
     h = _StreamWalk(state, mode).upsampler(f"up{i}", decoder.up_blocks[i].upsampler, h,
                                            *decoder.ups_args(i))
-    return decoder_tail_stream(decoder, h, state, mode, temb)
+    return decoder_tail_stream(decoder, h, state, mode, temb, noise_key)
 
 
 def _stream_geometry(cfg: LtxVaeConfig):
@@ -487,18 +527,20 @@ def _run_stream(step, x, spans):
     return torch.cat(outs, dim=2)
 
 
-def decoder_tail_streamed(decoder: LtxVaeDecoder, h, temb=None, n_chunks: int = 2):
+def decoder_tail_streamed(decoder: LtxVaeDecoder, h, temb=None, n_chunks: int = 2,
+                          noise_key=None):
     """The tail over ``n_chunks`` streaming steps of the head's output ``h``."""
     spans = stream_spans(h.shape[2], n_chunks)
     delay = tail_stream_delay(decoder.cfg)
     if len(spans) > 1 and spans[0][1] - spans[0][0] <= delay:
         raise ValueError(f"streaming tail chunk size {spans[0][1] - spans[0][0]} must "
                          f"exceed the pipeline delay {delay}; use fewer chunks")
-    return _run_stream(lambda c, st, mode: decoder_tail_stream(decoder, c, st, mode, temb),
-                       h, spans)
+    return _run_stream(
+        lambda c, st, mode: decoder_tail_stream(decoder, c, st, mode, temb, noise_key), h, spans)
 
 
-def decoder_ups_tail_streamed(decoder: LtxVaeDecoder, h, temb=None, n_chunks: int = 4):
+def decoder_ups_tail_streamed(decoder: LtxVaeDecoder, h, temb=None, n_chunks: int = 4,
+                              noise_key=None):
     """The last upsampler and the tail over ``n_chunks`` streaming steps of
     ``decoder_head_pre_ups_forward``'s output ``h``."""
     spans = stream_spans(h.shape[2], n_chunks)
@@ -506,11 +548,13 @@ def decoder_ups_tail_streamed(decoder: LtxVaeDecoder, h, temb=None, n_chunks: in
     if len(spans) > 1 and spans[0][1] - spans[0][0] < need:
         raise ValueError(f"ups+tail stream first chunk {spans[0][1] - spans[0][0]} "
                          f"frames < pipeline fill {need}; use fewer chunks")
-    return _run_stream(lambda c, st, mode: decoder_ups_tail_stream(decoder, c, st, mode, temb),
-                       h, spans)
+    return _run_stream(
+        lambda c, st, mode: decoder_ups_tail_stream(decoder, c, st, mode, temb, noise_key),
+        h, spans)
 
 
-def decoder_forward_fullstream(decoder: LtxVaeDecoder, z, temb=None, n_chunks: int = 2):
+def decoder_forward_fullstream(decoder: LtxVaeDecoder, z, temb=None, n_chunks: int = 2,
+                               noise_key=None):
     """Every stage streamed over chunks of latent frames: activation memory
     O(chunk) everywhere, exact.  The first chunk needs at least
     ``fullstream_first_chunk_min`` latent frames."""
@@ -522,8 +566,8 @@ def decoder_forward_fullstream(decoder: LtxVaeDecoder, z, temb=None, n_chunks: i
                          f"tail-only streaming mode)")
 
     def step(c, state, mode):
-        h = decoder_head_stream(decoder, c, state, mode, temb)
-        return decoder_tail_stream(decoder, h, state, mode, temb)
+        h = decoder_head_stream(decoder, c, state, mode, temb, noise_key)
+        return decoder_tail_stream(decoder, h, state, mode, temb, noise_key)
 
     return _run_stream(step, z, spans)
 
@@ -651,12 +695,10 @@ def gaussian_split(moments):
 
 def gaussian_sample(moments, key):
     """mean + exp(logvar / 2)·eps, eps ``jax.random.normal(key)`` drawn in
-    the moments' dtype (float32 or bfloat16: another stream each) by
-    ``utils/rng.normal`` on the host."""
-    from ...utils import rng as R
-
+    the moments' dtype (float32 or bfloat16: another stream each) where the
+    moments live (``utils/rng.normal_on``: R1 on the card)."""
     mean, logvar = gaussian_split(moments)
-    eps = torch.from_numpy(R.normal(key, mean.shape, mean.dtype)).to(mean.device, mean.dtype)
+    eps = R.normal_on(key, mean.shape, mean.dtype, mean.device)
     return mean + torch.exp(0.5 * logvar) * eps
 
 
@@ -988,7 +1030,8 @@ def init_random(cfg: LtxVaeConfig, device, dtype=torch.bfloat16,
                 generator: torch.Generator | None = None) -> LtxVaeDecoder:
     """Random-init decoder with the JAX init's std values: convs N(0, 0.05),
     linears N(0, 0.02), biases 0, scale/shift tables N(0, 1/sqrt(C)),
-    timestep multiplier 1000, latent mean 0 and std 1."""
+    timestep multiplier 1000, latent mean 0 and std 1; the noise scales
+    (which the JAX init does not make) N(0, 0.02)."""
     model = empty_decoder(cfg, device, dtype)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]

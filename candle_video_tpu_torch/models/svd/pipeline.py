@@ -8,8 +8,9 @@ v-prediction Euler loop with ``scale_model_input``, and the chunked
 temporal-VAE decode.  Latents stay f32 across steps and enter the UNet in
 its dtype.
 
-The noise follows the JAX package's keys, drawn on the host
-(``utils/rng.py``): ``key, k1, k2 = split(PRNGKey(seed), 3)``, the image
+The noise follows the JAX package's keys, split on the host and drawn on
+the pipeline's device (``utils/rng.normal_on``: R1 on the card):
+``key, k1, k2 = split(PRNGKey(seed), 3)``, the image
 noise from ``k1`` and the initial latents from ``k2``, so one seed gives
 the JAX package's request on the CPU and on the card.  ``image_noise`` and
 ``latent_noise`` (standard-normal draws of the image's and the latents'
@@ -100,7 +101,7 @@ def generate(pipe: SvdPipeline, image, inference: Optional[SvdInferenceConfig] =
     # 2. VAE-encode the noise-augmented conditioning image; diffusers SVD
     # does not scale the conditioning latents, so the scaling is undone
     if image_noise is None:
-        image_noise = torch.from_numpy(R.normal(k1, image.shape))
+        image_noise = R.normal_on(k1, image.shape, device=dev)
     image_aug = image + image_noise.to(dev, image.dtype) * inf.noise_aug_strength
     image_latents = SV.encode_to_latent(pipe.vae, image_aug)
     image_latents = image_latents / cfg.vae.scaling_factor
@@ -111,7 +112,7 @@ def generate(pipe: SvdPipeline, image, inference: Optional[SvdInferenceConfig] =
     schedule = ES.set_timesteps(cfg.scheduler, inf.num_inference_steps)
     lat_shape = (b * f, cfg.vae.latent_channels) + tuple(image_latents.shape[2:])
     if latent_noise is None:
-        latent_noise = torch.from_numpy(R.normal(k2, lat_shape))
+        latent_noise = R.normal_on(k2, lat_shape, device=dev)
     latents = latent_noise.to(dev, torch.float32) * schedule.init_noise_sigma
 
     # 4. added time ids (fps - 1 conditioning)

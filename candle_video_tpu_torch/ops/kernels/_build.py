@@ -79,6 +79,9 @@ _SIGNATURES = {
     # null), B, T, H, W, C, O, time mode, bh, bw, bn, split, stream
     "cvt_conv3d_igemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
+    # keys (host uint32 (hi, lo) pairs), rows, n values a row, bf16 (0 or 1),
+    # out [rows, n], stream
+    "cvt_threefry_normal": [_P, _I, ctypes.c_longlong, _I, _P, _P],
 }
 
 

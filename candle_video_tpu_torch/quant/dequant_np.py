@@ -4,8 +4,8 @@
 Implements the ggml block layouts Q8_0, Q4_K, Q5_K, Q6_K, F16 and F32; the
 port's GGUF reader dequantizes through these functions only.
 
-Also provides the Q8_0 and Q4_K quantizers (encode) with which tests write
-random weights into GGUF files.
+Also provides the Q8_0, Q4_K, Q5_K and Q6_K quantizers (encode) with which
+tests write random weights into GGUF files.
 """
 
 from __future__ import annotations
@@ -291,10 +291,14 @@ def _simple_kquant_scales(x, nmax):
     return scale, -gmin
 
 
-def quantize_q4_k(x: np.ndarray) -> np.ndarray:
+def _kquant_affine(x, nmax: float):
+    """The Q4_K / Q5_K encode shared by both: per-32-group scale and min at
+    6 bits against the block's f16 ``d`` / ``dmin``, the quants in
+    [0, nmax] ([nb, 8, 32] uint8) and the 12 packed scale bytes (the inverse
+    of ``get_scale_min_k4``)."""
     x = x.astype(np.float32).reshape(-1, QK_K)
     nb = x.shape[0]
-    scale, mins = _simple_kquant_scales(x, 15.0)
+    scale, mins = _simple_kquant_scales(x, nmax)
     smax = scale.max(axis=1)
     mmax = mins.max(axis=1)
     d = np.where(smax > 0, smax / 63.0, 0).astype(np.float32)
@@ -308,7 +312,7 @@ def quantize_q4_k(x: np.ndarray) -> np.ndarray:
     q = np.clip(
         np.round((g + eff_min[:, :, None]) / np.where(eff_scale == 0, 1, eff_scale)[:, :, None]),
         0,
-        15,
+        nmax,
     ).astype(np.uint8)
 
     scales = np.zeros((nb, 12), np.uint8)
@@ -319,16 +323,76 @@ def quantize_q4_k(x: np.ndarray) -> np.ndarray:
         scales[:, j + 4] = (ls[:, j] & 0xF) | ((lm[:, j] & 0xF) << 4)
         scales[:, j - 4] |= (ls[:, j] >> 4) << 6
         scales[:, j] |= (lm[:, j] >> 4) << 6
+    return d, dmin, scales, q
 
-    qs = np.zeros((nb, 128), np.uint8)
+
+def _low_nibbles(q):
+    """Pairs of 32-groups share bytes: the low nibble group 2k, the high 2k+1."""
+    qs = np.zeros((q.shape[0], 128), np.uint8)
     for pair in range(4):
         qs[:, pair * 32 : (pair + 1) * 32] = (q[:, 2 * pair] & 0xF) | (
             (q[:, 2 * pair + 1] & 0xF) << 4
         )
+    return qs
 
-    out = np.empty((nb, BLOCK_SIZES[GGML_Q4_K][1]), np.uint8)
+
+def quantize_q4_k(x: np.ndarray) -> np.ndarray:
+    d, dmin, scales, q = _kquant_affine(x, 15.0)
+    out = np.empty((q.shape[0], BLOCK_SIZES[GGML_Q4_K][1]), np.uint8)
     out[:, 0:2] = d.astype(np.float16)[:, None].view(np.uint8)
     out[:, 2:4] = dmin.astype(np.float16)[:, None].view(np.uint8)
     out[:, 4:16] = scales
-    out[:, 16:] = qs
+    out[:, 16:] = _low_nibbles(q)
+    return out.reshape(-1)
+
+
+def quantize_q5_k(x: np.ndarray) -> np.ndarray:
+    """Encode Q5_K blocks (simplified scale search, exact layout): Q4_K's
+    nibbles plus each quant's fifth bit in ``qh`` (bit 2k of byte l for
+    element l of group 2k, bit 2k+1 for group 2k+1)."""
+    d, dmin, scales, q = _kquant_affine(x, 31.0)
+    qh = np.zeros((q.shape[0], 32), np.uint8)
+    for pair in range(4):
+        qh |= (q[:, 2 * pair] >> 4) << (2 * pair)
+        qh |= (q[:, 2 * pair + 1] >> 4) << (2 * pair + 1)
+    out = np.empty((q.shape[0], BLOCK_SIZES[GGML_Q5_K][1]), np.uint8)
+    out[:, 0:2] = d.astype(np.float16)[:, None].view(np.uint8)
+    out[:, 2:4] = dmin.astype(np.float16)[:, None].view(np.uint8)
+    out[:, 4:16] = scales
+    out[:, 16:48] = qh
+    out[:, 48:] = _low_nibbles(q)
+    return out.reshape(-1)
+
+
+def quantize_q6_k(x: np.ndarray) -> np.ndarray:
+    """Encode Q6_K blocks (simplified scale search, exact layout): 16 groups
+    of 16 with an int8 scale each against the block's f16 ``d``, quants in
+    [-32, 31] stored +32 as 4 low bits (``ql``) and 2 high bits (``qh``)."""
+    x = x.astype(np.float32).reshape(-1, QK_K)
+    nb = x.shape[0]
+    groups = x.reshape(nb, 16, 16)
+    gscale = np.abs(groups).max(axis=2) / 31.0
+    smax = gscale.max(axis=1)
+    d = np.where(smax > 0, smax / 127.0, 0).astype(np.float32)
+    sc = np.clip(np.round(gscale / np.where(d == 0, 1, d)[:, None]), -128, 127).astype(np.int8)
+    eff = d[:, None] * sc.astype(np.float32)
+    q = np.clip(np.round(groups / np.where(eff == 0, 1, eff)[:, :, None]), -32, 31)
+    qflat = (q.astype(np.int8) + 32).reshape(nb, QK_K).astype(np.uint8)  # 0..63
+
+    ql = np.zeros((nb, 128), np.uint8)
+    qh = np.zeros((nb, 64), np.uint8)
+    for half in range(2):
+        s1, s2, s3, s4 = (qflat[:, half * 128 + 32 * k : half * 128 + 32 * (k + 1)]
+                          for k in range(4))
+        ql[:, half * 64 : half * 64 + 32] = (s1 & 0xF) | ((s3 & 0xF) << 4)
+        ql[:, half * 64 + 32 : half * 64 + 64] = (s2 & 0xF) | ((s4 & 0xF) << 4)
+        qh[:, half * 32 : half * 32 + 32] = (
+            (s1 >> 4) | ((s2 >> 4) << 2) | ((s3 >> 4) << 4) | ((s4 >> 4) << 6)
+        )
+
+    out = np.empty((nb, BLOCK_SIZES[GGML_Q6_K][1]), np.uint8)
+    out[:, 0:128] = ql
+    out[:, 128:192] = qh
+    out[:, 192:208] = sc.view(np.uint8)
+    out[:, 208:210] = d.astype(np.float16)[:, None].view(np.uint8)
     return out.reshape(-1)

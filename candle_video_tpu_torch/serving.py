@@ -11,11 +11,13 @@ continuous batching around one ``LtxPipeline``.
 - **Continuous batching** (``max_batch > 1``): the worker drains
   same-bucket requests that carry embeddings and serves them as ONE
   batched ``generate`` call.  Each row's initial latents are drawn from its
-  own seed on the host, exactly as a single-request call draws them
-  (PCG32, or ``jax.random.normal(PRNGKey(seed))`` through ``utils/rng``
-  with ``use_pcg_rng=False``), and injected as ``latents``; with a
-  timestep-conditioned VAE each row's decode noise is drawn from
-  ``PRNGKey(seed + 2)`` and injected as ``decode_noise``.  A batched
+  own seed, exactly as a single-request call draws them, and injected as
+  ``latents``: PCG32 row by row on the host, or with
+  ``use_pcg_rng=False`` every row's ``jax.random.normal(PRNGKey(seed))``
+  in one R1 launch on the device (``utils/rng.rows_normal``, the JAX
+  server's jitted ``vmap``); with a timestep-conditioned VAE every row's
+  decode noise, from ``PRNGKey(seed + 2)``, is one more such launch,
+  injected as ``decode_noise``.  A batched
   request therefore starts from the same numbers as when served alone, and
   on the CPU ends within float rounding of it.  Requests that do not match
   the batch wait in a bounded pending list that is served before new queue
@@ -287,7 +289,8 @@ class VideoGenerationServer:
 
     def _row_latents(self, request: Request, bucket: ShapeBucket) -> np.ndarray:
         """The initial latents a single-request call draws (generate()'s
-        ``use_pcg_rng`` branch)."""
+        ``use_pcg_rng`` branch), on the host: the PCG rows of a batch, and
+        the reference of its ``jax.random`` rows."""
         shape = self._latent_shape(bucket)
         if self._gen_kwargs.get("use_pcg_rng", True):
             return R.Pcg32(request.seed, 0).randn(shape)
@@ -295,7 +298,8 @@ class VideoGenerationServer:
 
     def _row_decode_noise(self, request: Request, bucket: ShapeBucket) -> np.ndarray:
         """The decode noise a single-request call draws: ``PRNGKey(seed + 2)``
-        at the single-sample shape."""
+        at the single-sample shape, on the host (the reference of a batch's
+        ``rows_normal`` draw)."""
         return R.normal(R.prng_key(request.seed + 2), self._latent_shape(bucket))
 
     def _serve_batch(self, items):
@@ -312,13 +316,17 @@ class VideoGenerationServer:
         """One generate() over N same-bucket embedding requests (the
         continuous-batching path; warmup runs it too)."""
         device = self._pipe.device
-        latents = torch.from_numpy(
-            np.concatenate([self._row_latents(r, b) for r in requests])).to(device)
+        shape, seeds = self._latent_shape(b), [r.seed for r in requests]
+        if self._gen_kwargs.get("use_pcg_rng", True):
+            # PCG rows are host-side by contract
+            latents = torch.from_numpy(
+                np.concatenate([self._row_latents(r, b) for r in requests])).to(device)
+        else:
+            latents = R.rows_normal(seeds, shape, device=device)
         decode_noise = None
         if (requests[0].output_type != "latent" and self._pipe.vae is not None
                 and self._pipe.config.vae.timestep_conditioning):
-            decode_noise = torch.from_numpy(
-                np.concatenate([self._row_decode_noise(r, b) for r in requests])).to(device)
+            decode_noise = R.rows_normal(seeds, shape, offset=2, device=device)
         neg = requests[0].negative_prompt_embeds is not None
         out = generate(
             self._pipe,

@@ -1,14 +1,21 @@
-"""Host-side random streams of the JAX package, in NumPy.
+"""The JAX package's random streams: PCG32 on the host, ``jax.random`` on
+the device.
 
 - ``Pcg32``: the deterministic PCG32 RNG with Box-Muller Gaussian sampling,
-  the port's own copy of ``candle_video_tpu/utils/rng.py``.
+  the port's own copy of ``candle_video_tpu/utils/rng.py``.  It stays on the
+  host, as in the JAX package ("host-side by contract").
 - ``prng_key``, ``split`` and ``normal``: ``jax.random.PRNGKey``,
   ``jax.random.split`` and ``jax.random.normal`` (float32 or bfloat16) in
-  the form the JAX package draws them (the default threefry2x32 generator with
-  ``jax_threefry_partitionable`` on), so that one seed gives the JAX
-  package's decode noise, stochastic step noise and SVD noise.  Keys are
-  ``(hi, lo)`` pairs of ``np.uint32``; seeds of 2**32 and above differ from
-  JAX's when JAX runs without x64.
+  NumPy, in the form the JAX package draws them (the default threefry2x32
+  generator with ``jax_threefry_partitionable`` on).  Keys are ``(hi, lo)``
+  pairs of ``np.uint32``; seeds of 2**32 and above differ from JAX's when
+  JAX runs without x64.  ``normal`` is the host reference.
+- ``normal_on`` and ``rows_normal``: the same draws made where the tensor
+  lives, through R1 (``ops/kernels/threefry_normal.py``: the CUDA kernel on
+  a GPU, its plain PyTorch version on the CPU), one launch for any number
+  of rows.  Every ``jax.random`` draw of the port's pipelines, VAE, server
+  and SVD goes through them; keys are still split on the host, which is
+  microseconds of scalar work.
 
 Bit-exact re-implementation of the reference's deterministic RNG
 (reference: src/utils/deterministic_rng.rs:6-82) so that initial latents are
@@ -285,3 +292,36 @@ def normal(key, shape, dtype=np.float32) -> np.ndarray:
     lo_f = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = np.maximum(lo_f, u01 * (np.float32(1.0) - lo_f) + lo_f)
     return (np.float32(np.sqrt(2.0)) * _erfinv_f32(u)).astype(np.float32).reshape(shape)
+
+
+def normal_on(keys, shape, dtype=None, device="cpu"):
+    """``jax.random.normal`` drawn on ``device`` (a torch tensor of
+    ``shape``, float32 unless ``dtype`` is ``torch.bfloat16``) by one R1
+    launch.  ``keys`` is one ``(hi, lo)`` key for the whole shape, or a
+    list of keys, one per row of the leading axis: row r is then
+    ``jax.random.normal(keys[r], shape[1:])``, as JAX's ``vmap`` over keys
+    draws it."""
+    import torch
+
+    from ..ops.kernels.threefry_normal import threefry_normal
+
+    shape = tuple(int(s) for s in shape)
+    rows = keys if isinstance(keys, list) else [keys]
+    if isinstance(keys, list) and (not shape or len(keys) != shape[0]):
+        raise ValueError(f"normal_on: {len(keys)} keys for the rows of shape {shape}")
+    n = int(np.prod(shape[1:] if isinstance(keys, list) else shape))
+    return threefry_normal(rows, n, dtype or torch.float32, device).reshape(shape)
+
+
+def rows_normal(seeds, shape, offset: int = 0, device="cpu"):
+    """The JAX server's ``_rows_normal_jit``: for each seed s one float32
+    row ``jax.random.normal(PRNGKey(s + offset), shape)``, stacked on a new
+    leading axis that takes the place of ``shape``'s leading 1 (``shape``
+    is the single-request shape [1, ...]), all in one launch on
+    ``device``.  Seeds keep their full width (JAX's server truncates them
+    to uint32)."""
+    shape = tuple(int(s) for s in shape)
+    if not shape or shape[0] != 1:
+        raise ValueError(f"rows_normal: shape {shape} must be a single-request [1, ...] shape")
+    keys = [prng_key(int(s) + offset) for s in seeds]
+    return normal_on(keys, (len(keys),) + shape[1:], device=device)

@@ -4,7 +4,7 @@ Builds the hand-written CUDA kernels from ``candle_video_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the main paths' shapes (K1
 at the served batch of two, the 13B-dev request's three rows and one 13B
 tensor-parallel rank's 16 heads too; all
-eight also as copies broken on purpose, which must fail; K3 and K4 also at
+eight, and R1, also as copies broken on purpose, which must fail; K3 and K4 also at
 qblocks the kernel is not built for, on their dequant route), then
 drives on random weights, checking the outputs and the kernels' launch
 counts of every request:
@@ -14,7 +14,18 @@ counts of every request:
   per-stage times and one more warm request timed end to end only; then the
   last request's latents decoded again with every eligible decoder conv on
   K8 (``CVT_CONV3D_IMPL=igemm``) against the default cuDNN decode;
-- the same preset's image-to-video request at 512x768x97 (a random image as
+- R1 (``csrc/threefry_normal.cu``: ``jax.random.normal`` drawn on the card)
+  against its plain version at the paths' draws (the decode noise, a
+  served batch of two rows, an anchor's bf16 posterior, the SVD image
+  noise, one bf16 injection), beside the host NumPy draw it replaced, and
+  a copy broken on purpose; the 2B request's decode noise on R1 (one
+  launch), and a full-width 2B decoder with noise injected in every
+  resnet, dense against the streamed tail (two R1 launches a resnet);
+- the ``0.9.6-2b-distilled`` stochastic preset as published (512x768x97,
+  8 stochastic steps, the int8 T5): a cold and a warm request, every step's
+  noise and the decode noise on R1, against the same request on the plain
+  version's draws;
+- the ``0.9.8-2b-distilled`` image-to-video request at 512x768x97 (a random image as
   a hard anchor on frame 0 through the VAE encoder, every token at its own
   timestep through the DiT's AdaLN): a warm-up and a timed request, the
   anchor's latent frame held bit for bit, and a two-anchor request (frame
@@ -130,6 +141,19 @@ DECODE_PSNR_DB = dict(tail=80.0, full_bf16=42.0, full_f32=80.0)
 # the card's dense bf16 and int8 tensor-core peaks and memory rate (H100 SXM
 # data sheet, 700 W)
 PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
+# R1 against its plain version on the card: both round each step of the
+# uniform and the erfinv on its own and call the card's log1pf, so they are
+# expected to agree bit for bit; the limits let one float32 ulp through in
+# float32 (well inside the CPU tests' 1e-5 against the host NumPy draw) and
+# one bfloat16 ulp in bfloat16.  The broken copy (one rotation constant of
+# the cipher changed) draws another stream: |d| ~ 1.
+R1_TOL = dict(f32_abs=1e-5, bf16_scaled=8e-3)
+R1_BREAK = ("{{13, 15, 26, 6}, {17, 29, 16, 24}}", "{{13, 15, 26, 7}, {17, 29, 16, 24}}")
+# the card's INT32 rate, 64 lanes on each of 132 SMs at the 1.98 GHz boost
+# clock (H100 SXM), and the int32 operations R1 spends on a value (20
+# rounds of add, rotate and xor, 5 key injections of two adds, the counter
+# split, the xor of the two words and the bit extraction)
+PEAK_INT32_OPS, R1_OPS_PER_VALUE = 132 * 64 * 1.98e9, 80
 K3_TOL = dict(rel=2e-4)                 # bf16 output rounding
 K4_TOL = dict(rel=2e-4)                 # bf16 output rounding
 SLICE_TOL = dict(latent_rel=2e-2, video_psnr=35.0)  # bf16 card run vs f32 plain run
@@ -259,13 +283,13 @@ def by_frame(plain, q, k, v, bias=None, **kw):
 
 # the sources whose kernels must keep every value in registers
 NO_SPILLS = ("flash_attention_hopper.cu", "conv3d_igemm.cu", "int8_matmul.cu",
-             "weight_only_matmul_hopper.cu")
+             "weight_only_matmul_hopper.cu", "threefry_normal.cu")
 
 
 def check_ptxas(card):
     """Every kernel's registers and spill bytes as ``ptxas -v`` reported
     them at the build; the kernels of the ``NO_SPILLS`` sources (the
-    attention modes K1, K2, K5 and K6; K7; K8) must not spill."""
+    attention modes K1, K2, K5 and K6; K7; K8; R1) must not spill."""
     from candle_video_tpu_torch.ops.kernels import _build
 
     report = _build.ptxas_report()
@@ -1392,6 +1416,102 @@ def check_k8(card):
     return rows[0]
 
 
+# R1's draws on the paths: (label, the seeds of its rows, one row's shape,
+# dtype); the decode noise first, the row of the kernels line
+R1_CASES = [("decode noise 1x128x13x16x24 f32", (1,), (1, 128, 13, 16, 24), torch.float32),
+            ("served batch 2x128x13x16x24 f32", (1, 2), (1, 128, 13, 16, 24), torch.float32),
+            ("anchor posterior 1x128x1x16x24 bf16", (3,), (1, 128, 1, 16, 24), torch.bfloat16),
+            ("SVD image noise 1x3x576x1024 f32", (4,), (1, 3, 576, 1024), torch.float32),
+            ("injection 16x24 bf16", (5,), (16, 24), torch.bfloat16)]
+
+
+def check_r1(card):
+    """R1 against its plain version on the card at the paths' draws
+    (``R1_CASES``): the max abs difference and the count of unequal values,
+    also against the host NumPy draw (``utils/rng.normal``) that the port
+    made before; timed through the wrapper (``ms``), on the device by
+    ``torch.profiler`` (``kernel_ms``), beside the plain version on the
+    card and the host draw alone and with its upload (the path R1
+    replaces).  No PyTorch call computes ``jax.random.normal``
+    (``library_ms`` null); ``torch.randn`` of the same size, another
+    stream, is logged beside.  Then the broken copy, which must fail every
+    case."""
+    import numpy as np
+
+    from candle_video_tpu_torch.ops.kernels import threefry_normal as TN
+    from candle_video_tpu_torch.utils import rng as R
+
+    dev = torch.device("cuda")
+    rows, inputs = [], {}
+    for label, seeds, shape, dtype in R1_CASES:
+        keys = [R.prng_key(s) for s in seeds]
+        n = math.prod(shape)
+        host_dtype = "bfloat16" if dtype == torch.bfloat16 else np.float32
+
+        def call(keys=keys, n=n, dtype=dtype):
+            return TN.threefry_normal(keys, n, dtype, dev)
+
+        def host(keys=keys, shape=shape, host_dtype=host_dtype):
+            return np.stack([R.normal(k, shape, host_dtype) for k in keys])
+
+        def host_upload(host=host, dtype=dtype):
+            out = torch.from_numpy(host()).to(dev, dtype)
+            torch.cuda.synchronize()
+            return out
+
+        got = call()
+        want = TN.threefry_normal_plain(keys, n, dtype, dev)
+        from_host = host_upload().reshape(got.shape)
+        torch.cuda.synchronize()
+        err = errors(got, want)
+        unequal = int((got != want).sum())
+        host_err = errors(got, from_host)
+        host_unequal = int((got != from_host).sum())
+        ms = cuda_ms(call, iters=20)
+        kernel_ms = device_ms_of(kernel_device_ms(call), "threefry_normal_kernel")
+        plain_ms = cuda_ms(lambda: TN.threefry_normal_plain(keys, n, dtype, dev), iters=5,
+                           warmup=1)
+        randn_ms = cuda_ms(lambda: torch.randn(len(keys), n, dtype=dtype, device=dev), iters=20)
+        values = n * len(keys)
+        row = dict(label=label, values=values, dtype=str(dtype), unequal=unequal,
+                   host_max_abs=host_err["max_abs"], host_unequal=host_unequal, ms=ms,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, host_ms=host_draw_ms(host),
+                   host_upload_ms=host_draw_ms(host_upload), library_ms=None,
+                   randn_ms=randn_ms, **err,
+                   **bound(R1_OPS_PER_VALUE * values, values * got.element_size(),
+                           PEAK_INT32_OPS))
+        log(f"[R1] {label}: max_abs={err['max_abs']:.3e} unequal={unequal} of {values} "
+            f"(against the host NumPy draw: max_abs={host_err['max_abs']:.3e} "
+            f"unequal={host_unequal}) wrapper={ms:.4f} ms kernel="
+            f"{'not measured' if kernel_ms is None else f'{kernel_ms:.4f} ms'} "
+            f"({row['bound_ms']:.4f} ms bound, {row['bound_by']}) plain={plain_ms:.3f} ms "
+            f"host draw={row['host_ms']:.2f} ms, with its upload={row['host_upload_ms']:.2f} ms "
+            f"(torch.randn, another stream: {randn_ms:.4f} ms) | {card}")
+        ok = (err["max_abs"] <= R1_TOL["f32_abs"] if dtype == torch.float32
+              else err["scaled"] <= R1_TOL["bf16_scaled"])
+        if not (ok and torch.isfinite(got).all()):
+            raise AssertionError(f"R1 {label} disagrees with its plain version: {row}")
+        rows.append(row)
+        inputs[label] = (call, want)
+    RESULTS["r1"] = rows
+
+    def run_broken():
+        res = {}
+        for label, (call, want) in inputs.items():
+            res[label] = errors(call(), want)
+            torch.cuda.synchronize()
+        return res
+
+    broken = broken_copy("r1", R1_BREAK, run_broken, source="threefry_normal.cu")
+    for label, err in broken.items():
+        log(f"[R1 broken: a rotation constant changed] {label}: max_abs={err['max_abs']:.3e} "
+            f"| {card}")
+        if err["max_abs"] <= R1_TOL["f32_abs"]:
+            raise AssertionError(f"the broken R1 passes the limits at {label}: {err}")
+    RESULTS["r1_broken"] = broken
+    return rows[0]
+
+
 def check_small_slice(card, quant=None, guided=False, prompt=SLICE_PROMPT):
     """The tiny slice on the card (kernels, bf16) against the same weights on
     the CPU (plain versions, f32): dense DiT and int8 T5 (K1, K3), with
@@ -1587,8 +1707,9 @@ def run_e2e(card):
     from candle_video_tpu_torch.models.ltx_video import vae as V
 
     pipe, _ = build_pipeline("e2e", card, "0.9.8-2b-distilled")
+    # R1: the decode noise (PRNGKey(seed + 2)); the initial latents are PCG32
     want = {"flash_attention_packed": 196, "w8_matmul": 168, "w4_matmul": 0,
-            "w8a8_matmul": 0, "conv3d_igemm": 0}
+            "w8a8_matmul": 0, "conv3d_igemm": 0, "threefry_normal": 1}
     # cold and warm with per-stage times (a sync after every stage and step),
     # then warm again timed end to end only, with no sync inside generate()
     requests = [("cold", "A cat walking on grass", True),
@@ -1608,8 +1729,125 @@ def run_e2e(card):
         V.decode = decode
     RESULTS["e2e"] = runs
     k8_launches = check_igemm_decode(card, pipe.vae, decoded["z"], decoded["temb"])
+    inject_launches = check_injected_decode(card, decoded["z"], decoded["temb"])
     release(pipe)
-    return runs[-1]["launches"], k8_launches
+    return runs[-1]["launches"], k8_launches, inject_launches
+
+
+def check_injected_decode(card, z, temb, chunks: int = 2):
+    """The 2B decoder at full width with ``decoder_inject_noise=(True,) *
+    4`` (random bf16 weights and noise scales from a seed) on a 97-frame
+    request's latents, with a ``noise_key``: the dense decode against the
+    head and the streamed tail in ``chunks`` chunks (the exact mode, held
+    to ``check_decode_modes``' tail limit), and against the same decode
+    without a key, which the noise must move.  R1 launches exactly twice
+    per injecting resnet in the dense decode, and twice per tail resnet per
+    chunk in the streamed one (every chunk draws the same [H, W] noise)."""
+    from candle_video_tpu_torch.models.ltx_video import pipeline as P
+    from candle_video_tpu_torch.models.ltx_video import vae as V
+    from candle_video_tpu_torch.models.ltx_video.configs import LtxVaeConfig
+    from candle_video_tpu_torch.ops.kernels import _build
+    from candle_video_tpu_torch.utils import rng as R
+
+    cfg = dataclasses.replace(LtxVaeConfig(), decoder_inject_noise=(True,) * 4)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    dec = V.init_random(cfg, "cuda", torch.bfloat16, g)
+    n_res = len(dec.mid_block.resnets) + sum(len(b.resnets) for b in dec.up_blocks)
+    n_tail = len(dec.up_blocks[-1].resnets)
+    key = R.prng_key(77)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        video = P.postprocess_video(fn())
+        torch.cuda.synchronize()
+        return video, time.perf_counter() - t0, _build.LAUNCHES["threefry_normal"]
+
+    dense, dense_s, dense_n = timed(lambda: dec(z, temb, noise_key=key))
+    streamed, stream_s, stream_n = timed(lambda: V.decoder_tail_streamed(
+        dec, V.decoder_head_forward(dec, z, temb, noise_key=key), temb, n_chunks=chunks,
+        noise_key=key))
+    quiet, quiet_s, quiet_n = timed(lambda: dec(z, temb))
+    spans = len(V.stream_spans(dense.shape[2], chunks))
+    want = dict(dense=2 * n_res, streamed=2 * (n_res - n_tail) + 2 * n_tail * spans, quiet=0)
+    row = dict(shape=list(z.shape), resnets=n_res, tail_resnets=n_tail, chunks=spans,
+               launches=dict(dense=dense_n, streamed=stream_n, quiet=quiet_n),
+               want_launches=want, dense_s=dense_s, streamed_s=stream_s, quiet_s=quiet_s,
+               streamed_vs_dense_psnr_db=psnr(streamed, dense),
+               quiet_vs_dense_psnr_db=psnr(quiet, dense))
+    RESULTS["injected_decode"] = row
+    log(f"[decode inject] 2B decoder, noise in all {n_res} resnets, {tuple(z.shape)}: dense "
+        f"{dense_s:.3f} s ({dense_n} R1), head + tail stream in {spans} "
+        f"{stream_s:.3f} s ({stream_n} R1), without a key {quiet_s:.3f} s; streamed vs dense "
+        f"PSNR={row['streamed_vs_dense_psnr_db']:.2f} dB, without the noise "
+        f"{row['quiet_vs_dense_psnr_db']:.2f} dB | {card}")
+    if row["launches"] != want:
+        raise AssertionError(f"injected decode: R1 launches {row['launches']}, want {want}")
+    if not (row["streamed_vs_dense_psnr_db"] >= DECODE_PSNR_DB["tail"]
+            and torch.isfinite(dense).all()):
+        raise AssertionError(f"injected decode: the streamed tail disagrees with dense: {row}")
+    if row["quiet_vs_dense_psnr_db"] >= DECODE_PSNR_DB["tail"]:
+        raise AssertionError(f"injected decode: the noise does not move the video: {row}")
+    del dec
+    return row["launches"]["dense"]
+
+
+def run_stochastic(card):
+    """The ``0.9.6-2b-distilled`` preset as published (512x768x97, 8
+    stochastic Euler steps, guidance 1, the int8 T5 on a string prompt),
+    its first run on the card.  Every ``jax.random`` draw goes through R1:
+    one step noise a step (the chain ``split`` from ``PRNGKey(seed + 1)``)
+    and the decode noise (``PRNGKey(seed + 2)``: the VAE is timestep
+    conditioned, so ``generate`` draws it, at the preset's decode noise
+    scale, which defaults to its decode timestep 0); the initial latents
+    are PCG32 on the host.  A cold and a warm request, each exactly 28 x 8
+    K1, 168 K3 and 8 + 1 R1; then the warm request again with every R1
+    draw made by the plain version on the card, whose final latents and
+    video the warm request is held to within ``SLICE_TOL``."""
+    from candle_video_tpu_torch.ops.kernels import threefry_normal as TN
+
+    pipe, _ = build_pipeline("stochastic", card, "0.9.6-2b-distilled")
+    inf = pipe.config.inference
+    steps = inf.num_inference_steps
+    if not (inf.stochastic_sampling and steps == 8 and inf.guidance_scale == 1.0):
+        raise AssertionError(f"0.9.6-2b-distilled is not the published stochastic preset: {inf}")
+    want = {"flash_attention_packed": 28 * steps, "w8_matmul": 168, "w4_matmul": 0,
+            "conv3d_igemm": 0, "threefry_normal": steps + 1}
+    prompt = "A heron standing in a misty marsh at dawn"
+    finals = []
+
+    def keep_final(i, n, lat):
+        if i == n - 1:
+            finals.append(lat.clone())
+
+    rows, videos = [], []
+    for name in ("cold", "warm"):
+        row, video = run_request(pipe, name, prompt, 60, want, card, tag="stochastic",
+                                 step_callback=keep_final)
+        rows.append(row)
+    videos.append(video)
+    kernel = TN.threefry_normal
+    TN.threefry_normal = lambda keys, n, dtype=torch.float32, device="cpu": \
+        TN.threefry_normal_plain(keys, n, dtype, device)
+    try:
+        row, video = run_request(pipe, "plain draws", prompt, 60,
+                                 dict(want, threefry_normal=0), card, tag="stochastic",
+                                 step_callback=keep_final)
+    finally:
+        TN.threefry_normal = kernel
+    videos.append(video)
+    rel = ((finals[1] - finals[2]).norm() / finals[2].norm()).item()
+    db = psnr(videos[0], videos[1])
+    RESULTS["stochastic"] = dict(requests=rows, plain_draws=row, latent_rel_vs_plain=rel,
+                                 video_psnr_vs_plain_db=db)
+    log(f"[stochastic] 0.9.6-2b-distilled, the warm request against the same request on the "
+        f"plain draws: final latents rel={rel:.3e}, video PSNR={db:.2f} dB | {card}")
+    if not (rel <= SLICE_TOL["latent_rel"] and db >= SLICE_TOL["video_psnr"]):
+        raise AssertionError(f"stochastic: the R1 request disagrees with the plain draws' "
+                             f"(rel {rel}, {db} dB)")
+    release(pipe)
+    return rows[-1]["launches"]
 
 
 @contextlib.contextmanager
@@ -1934,7 +2172,9 @@ def run_i2v(card):
     pipe, _ = build_pipeline("i2v", card, "0.9.8-2b-distilled")
     g = torch.Generator(device="cuda").manual_seed(12)
     image = torch.rand(1, 3, 512, 768, generator=g, device="cuda") * 2 - 1
-    want = {"flash_attention_packed": 196, "w8_matmul": 168, "conv3d_igemm": 0}
+    # R1: one bf16 posterior sample per anchor, and the decode noise
+    want = {"flash_attention_packed": 196, "w8_matmul": 168, "conv3d_igemm": 0,
+            "threefry_normal": 2}
     frame0 = 16 * 24
     finals, decoded = [], {}
     decode = V.decode
@@ -1962,8 +2202,9 @@ def run_i2v(card):
                     raise AssertionError(f"i2v {name}: the conditioned frame moved")
             two = [P.ConditioningItem(image=image, frame_index=0),
                    P.ConditioningItem(image=image.flip(-1), frame_index=12, strength=0.9)]
-            row, _ = run_request(pipe, "two anchors", "A kite over a windy beach", 52, want,
-                                 card, tag="i2v", conditioning=two, step_callback=keep_final)
+            row, _ = run_request(pipe, "two anchors", "A kite over a windy beach", 52,
+                                 dict(want, threefry_normal=3), card, tag="i2v",
+                                 conditioning=two, step_callback=keep_final)
             row["anchor_held"] = held(anchors[-2])
             if not (row["anchor_held"] and torch.isfinite(finals[-1]).all()):
                 raise AssertionError("i2v two anchors: frame 0 moved or the latents are not "
@@ -2313,6 +2554,19 @@ def trace_busy_ms(path):
     return busy / 1e3, len(spans)
 
 
+def trace_kernels(path):
+    """Kernel name -> (summed milliseconds, spans) of the kernel spans in a
+    Chrome trace that ``torch.profiler`` exported."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    rows: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            ms, n = rows.get(e.get("name", ""), (0.0, 0))
+            rows[e.get("name", "")] = (ms + e["dur"] / 1e3, n + 1)
+    return rows
+
+
 def host_draw_ms(fn, iters: int = 3) -> float:
     """Median host-clock milliseconds of ``fn``, host work only."""
     times = []
@@ -2365,7 +2619,12 @@ def run_serving(card):
     bit-equal to its single request's, its video within
     ``SERVING_PSNR_DB`` of it, exactly 196 K1 launches per generate call
     whatever its batch, no K3 launch for embeds, 168 for the first string
-    request and none for its repeat."""
+    request and none for its repeat; two R1 launches per batch or single
+    request: a batch's ``rows_normal`` for its latents and one for its
+    decode noise, made before its generate call, or a single request's two
+    draws inside it.  A row's draws are timed on
+    the host as the port made them before (NumPy, ``_row_latents``) and as
+    R1 makes them now; the traced batch also gives R1's device time."""
     from candle_video_tpu_torch import serving as S
     from candle_video_tpu_torch.models.ltx_video import pipeline as P
     from candle_video_tpu_torch.ops.kernels import _build
@@ -2383,10 +2642,13 @@ def run_serving(card):
 
     def check_calls(tag, calls, k3=0):
         for c in calls:
-            got = {k: c["launches"].get(k, 0) for k in ("flash_attention_packed", "w8_matmul")}
-            if got != {"flash_attention_packed": 196, "w8_matmul": k3}:
+            # a batch draws its rows before its generate call, a single request in it
+            want = {"flash_attention_packed": 196, "w8_matmul": k3,
+                    "threefry_normal": 2 if c["latents"].shape[0] == 1 else 0}
+            got = {k: c["launches"].get(k, 0) for k in want}
+            if got != want:
                 raise AssertionError(f"[serving] {tag}: a generate call launched {c['launches']}, "
-                                     f"want 196 flash_attention_packed and {k3} w8_matmul")
+                                     f"want {want}")
 
     rows = {}
     reqs = [request(i) for i in range(SERVING_REQUESTS)]
@@ -2403,6 +2665,9 @@ def run_serving(card):
     sizes = [c["latents"].shape[0] for c in calls_b2]
     if sizes != [2] * (SERVING_REQUESTS // 2):
         raise AssertionError(f"[serving] max_batch=2 burst ran batches of {sizes}")
+    if launches_b2.get("threefry_normal", 0) != 2 * len(sizes):
+        raise AssertionError(f"[serving] max_batch=2 burst launched {launches_b2}, want two "
+                             f"R1 launches a batch of 2")
     rows["b2"] = dict(videos_per_min=SERVING_REQUESTS / wall_b2 * 60.0, wall_s=wall_b2,
                       p50_s=percentile(lat_b2, 50), p95_s=percentile(lat_b2, 95),
                       sojourn_s=lat_b2, warmup_s=warm_s, stats=server.stats(),
@@ -2433,8 +2698,13 @@ def run_serving(card):
 
     # where a batch's time goes: the host draws of one row, then one batch
     # of 2 traced through the server's CVT_PROFILE window
+    from candle_video_tpu_torch.utils import rng as R
+
+    seeds2, shape = [r.seed for r in reqs[:2]], server1._latent_shape(big)
     draws = dict(latents_ms=host_draw_ms(lambda: server1._row_latents(reqs[0], big)),
-                 decode_noise_ms=host_draw_ms(lambda: server1._row_decode_noise(reqs[0], big)))
+                 decode_noise_ms=host_draw_ms(lambda: server1._row_decode_noise(reqs[0], big)),
+                 r1_2_rows_ms=cuda_ms(lambda: R.rows_normal(seeds2, shape, device="cuda")),
+                 r1_2_rows_host_ms=host_ms(lambda: R.rows_normal(seeds2, shape, device="cuda")))
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["CVT_PROFILE"] = tmp
         try:
@@ -2446,13 +2716,21 @@ def run_serving(card):
         if names != ["serve_00000_b2.trace.json"]:
             raise AssertionError(f"[serving] the traced batch of 2 wrote {names}")
         busy_ms, spans = trace_busy_ms(os.path.join(tmp, names[0]))
+        kernels = trace_kernels(os.path.join(tmp, names[0]))
+    r1 = [v for k, v in kernels.items() if "threefry_normal" in k]
+    r1_ms, r1_spans = sum(v[0] for v in r1), sum(v[1] for v in r1)
     traced_ms = server.stats()["buckets"][str(big.key())]["last_ms"]
     if not spans:
         raise AssertionError("[serving] the traced batch holds no device span")
     rows["traced_b2"] = dict(
         ms=traced_ms, untraced_batch_ms=1e3 * wall_b2 / (SERVING_REQUESTS // 2),
         device_busy_ms=busy_ms, device_spans=spans, idle_share=1.0 - busy_ms / traced_ms,
-        host_draws_2_rows_ms=2 * (draws["latents_ms"] + draws["decode_noise_ms"]), **draws)
+        r1_trace_ms=r1_ms, r1_trace_spans=r1_spans,
+        host_draws_2_rows_ms=2 * (draws["latents_ms"] + draws["decode_noise_ms"]),
+        r1_host_2x2_rows_ms=2 * draws["r1_2_rows_host_ms"],
+        trace_kernels={k: v for k, v in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:40]},
+        trace_kernel_names=sorted(kernels)[:300],
+        **draws)
 
     # a mixed burst: the big bucket interleaved with the small one
     mixed = [request(10 + i, big if i % 2 == 0 else small) for i in range(SERVING_REQUESTS)]
@@ -2492,10 +2770,12 @@ def run_serving(card):
         f"{small.height}x{small.width}x{small.num_frames} "
         f"{rows['mixed']['videos_per_min']:.2f} videos/min (batches {rows['mixed']['batches']}); "
         f"batched vs single {min(psnrs):.2f}-{max(psnrs):.2f} dB (vs another request "
-        f"{crossed:.2f} dB), initial latents bit-equal; a row's host draws "
-        f"{draws['latents_ms']:.1f} ms latents + {draws['decode_noise_ms']:.1f} ms decode "
-        f"noise; traced batch of 2 {traced_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({rows['traced_b2']['idle_share']:.1%} idle); "
+        f"{crossed:.2f} dB), initial latents bit-equal; a row's draws on the host (NumPy, as "
+        f"before) {draws['latents_ms']:.1f} ms latents + {draws['decode_noise_ms']:.1f} ms "
+        f"decode noise, two rows' on R1 {draws['r1_2_rows_ms']:.4f} ms on the card "
+        f"({draws['r1_2_rows_host_ms']:.4f} ms of host work); traced batch of 2 "
+        f"{traced_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({rows['traced_b2']['idle_share']:.1%} idle; R1 {r1_ms:.4f} ms in {r1_spans} spans); "
         f"string prompt {lat_text[0]:.3f} s, its repeat from the cache behind it "
         f"{lat_text[1]:.3f} s; burst launches "
         f"{launches_b2} | {card}")
@@ -3082,7 +3362,8 @@ def run_svd(card, steps: int = 25):
         finally:
             V.decode = decode
         launches = dict(_build.LAUNCHES)
-        want = {k: c * n for k, c in per_step.items()} | dict.fromkeys(others, 0)
+        want = {k: c * n for k, c in per_step.items()} | dict.fromkeys(others, 0) | {
+            "threefry_normal": 2}  # the image noise and the latent noise
         if tuple(video.shape) != (14, 3, 576, 1024) or not torch.isfinite(video).all():
             raise AssertionError(f"svd {name}: video {tuple(video.shape)} or non-finite values")
         if any(launches.get(k, 0) != c for k, c in want.items()):
@@ -3464,13 +3745,15 @@ def main(argv=None) -> int:
     k5 = check_k5(card)
     k7 = check_k7(card)
     k8 = check_k8(card)
+    r1 = check_r1(card)
     check_small_slice(card)
     check_small_slice(card, quant="w4")
     check_small_slice(card, quant="w8a8")
     check_small_slice(card, guided=True)
     check_small_slice(card, quant="w4", guided=True)
     check_i2v_slice(card)
-    launches, launches_k8 = run_e2e(card)
+    launches, launches_k8, launches_inject = run_e2e(card)
+    launches_stochastic = run_stochastic(card)
     launches_i2v, launches_k8_encode = run_i2v(card)
     launches_w8a8 = run_w8a8(card)
     launches_sp = run_sp(card)
@@ -3531,6 +3814,22 @@ def main(argv=None) -> int:
     kernels[2]["kernel_ms"] = k3["kernel_ms"]   # K3 and K4 on the device, by profile
     kernels[3]["kernel_ms"] = k4["kernel_ms"]
     kernels[1].update(kernel_ms=k2["kernel_ms"], shift_ms=k2["shift_ms"])  # K2 alone, its shift
+    # R1, the port's own kernel: no Pallas kernel; it replaces the jax.random
+    # draws inside the JAX package's XLA programs (the server's vmap over
+    # seeds first).  Its yardstick is the host NumPy draw it replaced.
+    kernels.append(dict(
+        name="threefry_normal", route="cuda",
+        source="candle_video_tpu_torch/csrc/threefry_normal.cu",
+        replaces="candle_video_tpu/serving.py:41", launches=launches["threefry_normal"],
+        max_abs_err=r1["max_abs"], ms=r1["ms"], plain_ms=r1["plain_ms"],
+        bound_ms=r1["bound_ms"], bound_by=r1["bound_by"], library_ms=None,
+        kernel_ms=r1["kernel_ms"], host_ms=r1["host_ms"], host_upload_ms=r1["host_upload_ms"],
+        launches_by_path={"t2v 2B 97f": launches["threefry_normal"],
+                          "stochastic 0.9.6 2B 97f": launches_stochastic["threefry_normal"],
+                          "i2v 2B 97f": launches_i2v["threefry_normal"],
+                          "serving 2B 97f b2": launches_serving["threefry_normal"],
+                          "injected decode 2B 97f": launches_inject,
+                          "svd 576x1024x14": launches_svd["threefry_normal"]}))
     RESULTS.update(card=card, kernels=kernels)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1)

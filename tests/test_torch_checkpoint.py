@@ -462,7 +462,8 @@ def test_vae_and_t5_errors():
     noise = dict(vae, **{"decoder.up_blocks.0.resnets.0.per_channel_scale1": torch.ones(8),
                          "decoder.mid_block.resnets.0.per_channel_scale2.weight":
                          torch.ones(16)})
-    L.vae_decoder_from_state_dict(noise, cfg, "cpu")  # read past, as without a noise key
+    with pytest.raises(L.LoaderError, match="no place for"):  # the config injects no noise
+        L.vae_decoder_from_state_dict(noise, cfg, "cpu")
     t5, _ = _fixture("t5")
     gone = "encoder.block.2.layer.1.DenseReluDense.wo.weight"
     with pytest.raises(L.LoaderError, match=f"missing tensor {gone}"):

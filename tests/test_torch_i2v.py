@@ -295,9 +295,9 @@ def test_bf16_anchor_draw_is_jax_bf16_draw(trees, monkeypatch):
     ppipe.vae.to(torch.bfloat16)
     ppipe.vae_encoder.to(torch.bfloat16)
     drawn, anchors = [], []
-    normal = R.normal
-    monkeypatch.setattr(R, "normal", lambda key, shape, dtype=np.float32: drawn.append(
-        (key, shape, str(dtype))) or normal(key, shape, dtype))
+    normal_on = R.normal_on
+    monkeypatch.setattr(R, "normal_on", lambda key, shape, dtype=None, device="cpu": drawn.append(
+        (key, shape, str(dtype))) or normal_on(key, shape, dtype, device))
     make = PP._anchor_latents
     monkeypatch.setattr(PP, "_anchor_latents", lambda *a, **k: anchors.append(make(*a, **k))
                         or anchors[-1])
@@ -311,7 +311,7 @@ def test_bf16_anchor_draw_is_jax_bf16_draw(trees, monkeypatch):
     key, shape, _ = draws[0]
     assert np.array_equal(np.asarray(key, np.uint32), np.asarray(R.prng_key(13 + 3), np.uint32))
     np.testing.assert_array_equal(
-        normal(key, shape, torch.bfloat16),
+        normal_on(key, shape, torch.bfloat16).float().numpy(),
         np.asarray(jax.random.normal(jax.random.PRNGKey(13 + 3), shape, jnp.bfloat16)
                    .astype(jnp.float32)))
     jbf = dict(vparams, encoder=jax.tree.map(lambda a: a.astype(jnp.bfloat16),

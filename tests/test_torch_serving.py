@@ -242,8 +242,8 @@ def test_row_draws_equal_the_jax_servers(pipes_vae, use_pcg_rng):
     bit; ``jax.random.normal(PRNGKey(seed))`` rows (``use_pcg_rng=False``)
     and the decode noise (``PRNGKey(seed + 2)``) within ``utils/rng``'s
     float32 limit, atol 1e-5 (XLA's log1p and fused erfinv polynomial round
-    a few ulp apart from NumPy's).  Every row is bit-equal to what the
-    port's own single-request ``generate`` draws for that seed."""
+    a few ulp apart from NumPy's).  Every row is bit-equal to the host
+    reference draw for that seed (PCG32, or ``utils/rng.normal``)."""
     from candle_video_tpu_torch.utils import rng as R
 
     bucket = (64, 64, 5, 2)
@@ -268,6 +268,44 @@ def test_row_draws_equal_the_jax_servers(pipes_vae, use_pcg_rng):
                                atol=1e-5, rtol=0)
     np.testing.assert_array_equal(
         noise, np.concatenate([R.normal(R.prng_key(s + 2), shape) for s in seeds]))
+
+
+@pytest.mark.parametrize("output_type", ["latent", "tensor"])
+def test_batched_jax_random_draws_are_one_rows_normal_each(pipes_vae, monkeypatch, output_type):
+    """``use_pcg_rng=False``: a batch draws its latents and (for a video) its
+    decode noise with one ``rows_normal`` call each, offsets 0 and 2, as the
+    JAX server's ``_batched_generate`` does: within atol 1e-5 of the JAX
+    server's ``_rows_normal`` rows (float32 ulps, ``test_torch_threefry.py``)
+    and bit-equal to the rows a single-request ``generate`` draws on the
+    same device (``normal_on(PRNGKey(seed))``, ``PRNGKey(seed + 2)``)."""
+    from candle_video_tpu_torch.utils import rng as R
+
+    bucket = (64, 64, 5, 2)
+    jserver, pserver = _servers(pipes_vae, [bucket], use_pcg_rng=False)
+    pb = PS.ShapeBucket(*bucket)
+    seeds = [5, 6, 2**31 + 7]
+    shape = pserver._latent_shape(pb)
+    calls, seen = [], {}
+    rows_normal = R.rows_normal
+    monkeypatch.setattr(R, "rows_normal", lambda *a, **k: calls.append((a, k))
+                        or rows_normal(*a, **k))
+    monkeypatch.setattr(PS, "generate", lambda pipe, **kw: seen.update(kw) or kw["latents"])
+    pserver._batched_generate([_reqs(s, bucket, output_type)[1] for s in seeds], pb)
+    video = output_type == "tensor"
+    assert [c[1].get("offset", 0) for c in calls] == ([0, 2] if video else [0])
+    assert all(list(c[0][0]) == seeds for c in calls)
+    np.testing.assert_allclose(seen["latents"].numpy(),
+                               np.asarray(jserver._rows_normal(seeds, shape)), atol=1e-5, rtol=0)
+    single = torch.cat([R.normal_on(R.prng_key(s), shape) for s in seeds])
+    assert torch.equal(seen["latents"], single)
+    if not video:
+        assert seen["decode_noise"] is None
+        return
+    np.testing.assert_allclose(seen["decode_noise"].numpy(),
+                               np.asarray(jserver._rows_normal(seeds, shape, 2)),
+                               atol=1e-5, rtol=0)
+    assert torch.equal(seen["decode_noise"],
+                       torch.cat([R.normal_on(R.prng_key(s + 2), shape) for s in seeds]))
 
 
 def test_row_latents_respect_use_pcg_rng(pipes):

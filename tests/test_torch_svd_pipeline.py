@@ -142,9 +142,31 @@ def test_generate_draws_from_its_generator(pipes, rng):
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
     _, k1, k2 = R.split(R.prng_key(1), 3)
     injected = PP.generate(ppipe, image, infs[0], output_type="latent",
-                           image_noise=torch.from_numpy(R.normal(k1, image.shape)),
-                           latent_noise=torch.from_numpy(R.normal(k2, runs[0].shape)))
+                           image_noise=R.normal_on(k1, image.shape),
+                           latent_noise=R.normal_on(k2, runs[0].shape))
     assert torch.equal(runs[0], injected)
+
+
+def test_batched_image_draws_are_jax_draws(pipes, rng, monkeypatch):
+    """Two images in one request: the image noise [2, 3, H, W] and the
+    latent noise [2·F, 4, h, w] are one ``normal_on`` draw each, from
+    ``split(PRNGKey(seed), 3)``'s k1 and k2, within atol 1e-5 of JAX's
+    ``jax.random.normal`` at those shapes (float32 ulps)."""
+    _, ppipe = pipes
+    image = torch.from_numpy(rng.uniform(-1, 1, size=(2, 3, 32, 32)).astype(np.float32))
+    inf = PP.SvdInferenceConfig(**dict(INF, num_inference_steps=1, seed=9))
+    drawn, normal_on = [], R.normal_on
+    monkeypatch.setattr(R, "normal_on", lambda key, shape, dtype=None, device="cpu":
+                        drawn.append((key, normal_on(key, shape, dtype, device))) or drawn[-1][1])
+    out = PP.generate(ppipe, image, inf, output_type="latent")
+    _, k1, k2 = jax.random.split(jax.random.PRNGKey(9), 3)
+    assert len(drawn) == 2
+    assert tuple(drawn[0][1].shape) == (2, 3, 32, 32)
+    assert tuple(drawn[1][1].shape) == tuple(out.shape) and out.shape[0] == 2 * INF["num_frames"]
+    for (key, got), jkey in zip(drawn, (k1, k2)):
+        np.testing.assert_array_equal(np.asarray(key, np.uint32), np.asarray(jkey, np.uint32))
+        want = np.asarray(jax.random.normal(jkey, tuple(got.shape), jnp.float32))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
 def test_generate_without_injection_matches_jax_generate(pipes, rng, monkeypatch):

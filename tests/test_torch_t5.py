@@ -246,6 +246,51 @@ def test_gguf_forward_matches_jax(tmp_path, rng, keep_quantized):
         np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
 
 
+@pytest.mark.parametrize("tid", [DQ.GGML_Q5_K, DQ.GGML_Q6_K])
+def test_port_quantizers_write_a_gguf_that_loads_as_jax_dequantizes(tmp_path, rng, tid):
+    """The port's own ``quantize_q5_k`` / ``quantize_q6_k`` equal the JAX
+    package's bit for bit; a T5 GGUF with every linear in that type, written
+    by the port's ``write_gguf``, loads through ``t5_from_gguf`` (f32,
+    dequantized) to the JAX ``dequantize_np`` of the same bytes, exactly."""
+    from candle_video_tpu_torch.quant import dequant_np as PDQ
+    from candle_video_tpu_torch.quant.gguf import write_gguf
+
+    quantize = {DQ.GGML_Q5_K: PDQ.quantize_q5_k, DQ.GGML_Q6_K: PDQ.quantize_q6_k}[tid]
+    jax_quantize = {DQ.GGML_Q5_K: DQ.quantize_q5_k, DQ.GGML_Q6_K: DQ.quantize_q6_k}[tid]
+    tensors, linears = {}, {}
+
+    def add(name, shape, t=None):
+        x = rng.normal(size=shape).astype(np.float32) * 0.1
+        if t is None:
+            tensors[name] = (DQ.GGML_F32, shape, x.view(np.uint8).reshape(-1))
+            return
+        raw = quantize(x)
+        np.testing.assert_array_equal(raw, jax_quantize(x), err_msg=name)
+        tensors[name] = (t, shape, raw)
+
+    add("token_embd.weight", (64, 256))
+    add("enc.output_norm.weight", (256,))
+    for i in range(2):
+        for role, shape in [("attn_q", (256, 256)), ("attn_k", (256, 256)),
+                            ("attn_v", (256, 256)), ("attn_o", (256, 256)),
+                            ("ffn_gate", (512, 256)), ("ffn_up", (512, 256)),
+                            ("ffn_down", (256, 512))]:
+            add(f"enc.blk.{i}.{role}.weight", shape, tid)
+            linears[(i, ROLES[role][1])] = f"enc.blk.{i}.{role}.weight"
+        add(f"enc.blk.{i}.attn_norm.weight", (256,))
+        add(f"enc.blk.{i}.ffn_norm.weight", (256,))
+    add("enc.blk.0.attn_rel_b.weight", (32, 8))
+    path = str(tmp_path / "t5_port.gguf")
+    write_gguf(path, tensors, {"general.architecture": "t5"})
+    enc = PT5.t5_from_gguf(path, T5Config(**GGUF_CFG), "cpu", torch.float32,
+                           keep_quantized=False)
+    for (i, name), key in linears.items():
+        t, shape, raw = tensors[key]
+        want = DQ.dequantize_np(t, raw, int(np.prod(shape))).reshape(shape)
+        got = getattr(enc.blocks[i], name).weight.detach().numpy()
+        np.testing.assert_array_equal(got, want, err_msg=key)
+
+
 def test_port_gguf_reader_matches_jax_reader(tmp_path, rng):
     """The port's own GGUF reader (``candle_video_tpu_torch/quant``) on a
     file written by the JAX package's ``write_gguf``: the same names, shapes,

@@ -100,8 +100,11 @@ def test_denormalize_and_unsupported_modes(rng):
 
 
 def test_decoder_rejects_noise_injection():
-    cfg = LtxVaeConfig(**TINY, decoder_inject_noise=(False, True, False, False))
-    with pytest.raises(NotImplementedError, match="decoder_inject_noise"):
+    """Noise injection needs a flag for the mid block and every up block:
+    a shorter ``decoder_inject_noise`` that asks for it is refused (the
+    full tuple builds the scales, ``tests/test_torch_vae_noise.py``)."""
+    cfg = LtxVaeConfig(**TINY, decoder_inject_noise=(True,))
+    with pytest.raises(ValueError, match="decoder_inject_noise"):
         PV.LtxVaeDecoder(cfg, torch.float32)
 
 
