@@ -55,11 +55,11 @@ from .models.ltx_video import t5 as T5
 from .models.ltx_video import transformer as TF
 from .models.ltx_video import vae as V
 from .models.ltx_video.configs import get_config_by_version, t5_xxl
-from .models.ltx_video.pipeline import LtxPipeline, generate
+from .models.ltx_video.pipeline import ATTN_IMPLS, LtxPipeline, generate
 from .models.ltx_video.weight_format import detect_format, split_unified_state_dict
 from .models.registry import build_pipeline
 from .parallel import PipelineMesh, make_mesh, make_pipeline_mesh, shard_transformer
-from .utils.tokenizer import MockTokenizer, T5TokenizerWrapper
+from .utils.tokenizer import MockTokenizer, make_tokenizer
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -153,7 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model dtype; the CUDA kernels take bfloat16")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
-    p.add_argument("--attn-impl", type=str, default="auto", choices=["auto", "pallas", "xla"],
+    p.add_argument("--attn-impl", type=str, default="auto", choices=ATTN_IMPLS,
                    help="attention route, as the JAX CLI's: 'auto' and 'pallas' run the "
                         "CUDA kernels on the GPU; 'xla' (the plain attention) is refused "
                         "on the GPU, whose path never falls back to a plain version. On "
@@ -313,8 +313,7 @@ def load_pipeline(args, device, dtype) -> LtxPipeline:
     with its resident int8 T5 unless a T5 file is given)."""
     cfg = get_config_by_version(args.version)
     dit_quant = _dit_quant(args)
-    tokenizer = (T5TokenizerWrapper(args.tokenizer, args.max_sequence_length) if args.tokenizer
-                 else MockTokenizer(model_max_length=args.max_sequence_length))
+    tokenizer = make_tokenizer(args.tokenizer, args.max_sequence_length, t5_xxl().vocab_size)
     if not args.weights_path:
         print("No --weights-path: random-init DiT and VAE (smoke mode)")
         pipe = build_random_pipeline(args.version, device, dtype, seed=args.seed,
@@ -428,7 +427,7 @@ def run_serve(args, pipe) -> int:
     server = VideoGenerationServer(
         pipe, [bucket], max_batch=args.serve_max_batch, use_pcg_rng=args.pcg_rng,
         vae_tail_stream_chunks=args.vae_stream_chunks,
-        max_sequence_length=args.max_sequence_length)
+        max_sequence_length=args.max_sequence_length, attn_impl=args.attn_impl)
     print(f"[serve] warming bucket {bucket.key()}...")
     t0 = time.perf_counter()
     server.warmup()
@@ -575,8 +574,8 @@ def _run(args, dit_quant, device, mesh=None, interleave: int = 1) -> int:
                        skip_block_list=args.skip_block_list,
                        num_videos_per_prompt=args.num_videos_per_prompt, seed=args.seed,
                        max_sequence_length=args.max_sequence_length,
-                       use_pcg_rng=args.pcg_rng, output_type=args.output_type,
-                       step_callback=step_callback,
+                       use_pcg_rng=args.pcg_rng, attn_impl=args.attn_impl,
+                       output_type=args.output_type, step_callback=step_callback,
                        vae_tail_stream_chunks=args.vae_stream_chunks,
                        use_vae_tiling=args.vae_tiling, use_vae_slicing=args.vae_slicing,
                        **mesh_kw, **kwargs)

@@ -368,6 +368,10 @@ def _anchor_latents(pipe, item, idx: int, seed: int, eff_batch: int,
     return il.float()
 
 
+# the attention routes ``generate(attn_impl=)`` and ``--attn-impl`` take
+ATTN_IMPLS = ("auto", "pallas", "xla")
+
+
 @torch.no_grad()
 def generate(
     pipe: LtxPipeline,
@@ -401,11 +405,13 @@ def generate(
     output_type: str = "tensor",  # "latent" | "tensor"
     max_sequence_length: int = 128,
     use_pcg_rng: bool = True,  # initial latents from PCG32, else PRNGKey(seed)
+    attn_impl: str = "auto",  # "auto" | "pallas" | "xla" (the plain path: CPU only)
     step_callback=None,
     stage_times: Optional[dict] = None,
     vae_tail_stream_chunks: int = 0,  # exact streamed tail (overlap-save)
     vae_tail_stream_from_ups: bool = False,  # ...started before the last upsampler
     vae_full_stream_chunks: int = 0,  # every decoder stage streamed
+    vae_auto_decode: bool = True,  # no chunk keyword -> select_decode_mode
     vae_tiling: Optional[V.TilingConfig] = None,
     use_vae_tiling: bool = False,  # spatial and temporal tiling (approximate)
     use_vae_slicing: bool = False,  # decode the batch rows one at a time
@@ -436,6 +442,19 @@ def generate(
     ``generate`` with the same arguments; the denoise runs sequence-parallel
     (``parallel.denoise_loop_sp``) and every rank returns the same output.
 
+    ``attn_impl`` names the attention route as the JAX ``generate`` does:
+    ``"auto"`` and ``"pallas"`` run the CUDA kernels (K1, K2, K5) on the
+    card, ``"xla"`` the plain attention, which only the CPU runs; on the CPU
+    every choice is the plain path.  ``"xla"`` on any other device raises
+    ``ValueError`` before any work, as no tensor there falls back to a plain
+    version, and the sequence- and pipeline-parallel loops run the kernels
+    for ``"auto"`` too (JAX turns ``"auto"`` into ``"xla"`` under PP).
+
+    ``vae_auto_decode`` (default True): with no chunk keyword the decode
+    mode comes from ``vae.select_decode_mode`` and the free card memory
+    before the denoise; False decodes dense unless a chunk keyword asks for
+    a streamed mode.
+
     ``pp_mesh`` (``parallel.make_pipeline_mesh``): every rank of the mesh
     calls ``generate`` with the same arguments; the DiT is cut in place to
     the rank's stage (``parallel.shard_transformer_pp``, with
@@ -448,6 +467,12 @@ def generate(
     cfg = pipe.config
     inf, tcfg, vcfg = cfg.inference, cfg.transformer, cfg.vae
     device = pipe.device
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+    if attn_impl == "xla" and device.type != "cpu":
+        raise ValueError(f"attn_impl='xla' runs the plain attention, and on {device} no "
+                         "tensor falls back to a plain version: use 'auto' or 'pallas' (the "
+                         "CUDA kernels), or a pipeline on the CPU")
     stochastic = cfg.scheduler.stochastic_sampling or inf.stochastic_sampling
     if pp_mesh is not None:
         if sp_mesh is not None:
@@ -560,12 +585,12 @@ def generate(
             latents = pack_latents(latents, tcfg.patch_size, tcfg.patch_size_t)
     debug.dump_tensor("initial_latents", latents)
 
-    # ---- decode mode: the one asked for, else resolved once, from the free
-    # memory before the denoise ---------------------------------------------------
+    # ---- decode mode: the one asked for, else (vae_auto_decode) resolved
+    # once, from the free memory before the denoise --------------------------------
     decode_kw = dict(tail_stream_chunks=vae_tail_stream_chunks,
                      tail_stream_from_ups=vae_tail_stream_from_ups,
                      full_stream_chunks=vae_full_stream_chunks)
-    if (output_type == "tensor" and pipe.vae is not None
+    if (vae_auto_decode and output_type == "tensor" and pipe.vae is not None
             and not vae_tail_stream_chunks and not vae_full_stream_chunks):
         decode_kw = V.select_decode_mode(vcfg, (eff_batch, vcfg.latent_channels, lf, lh, lw),
                                          device=device)

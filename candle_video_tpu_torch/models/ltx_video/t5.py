@@ -178,37 +178,65 @@ def _copy(arr):
     return torch.from_numpy(np.array(arr, order="C"))
 
 
-def _gguf_linear(f, name: str, device, dtype, keep_quantized: bool):
-    """One GGUF linear: dense ``nn.Linear``, or its payload carried as is."""
+def _q8_0_fields(f, name: str, device):
+    """A Q8_0 tensor [out, in] split on ``device``: int8 codes [out, in] and
+    the f16 block scales as f32 [out, in / 32].  The host only copies the
+    file's bytes: split and transposed in NumPy, a full-width T5-XXL's
+    4.6 G codes cost the host seconds a block (``chip_smoke.py``'s GGUF
+    phase times both routes)."""
     from ...quant import dequant_np as DQ
 
-    def t(arr, to=None):
-        return _copy(arr).to(device=device, dtype=to)
+    out_dim, in_dim = f.tensors[name].shape
+    blocks = _copy(f.raw_tensor(name)).to(device).reshape(-1, 2 + DQ.QK8_0)
+    d = blocks[:, :2].contiguous().view(torch.float16).float()
+    qs = blocks[:, 2:].contiguous().view(torch.int8)
+    return qs.reshape(out_dim, in_dim), d.reshape(out_dim, in_dim // DQ.QK8_0)
+
+
+def _gguf_dense(f, name: str, device, dtype):
+    """A GGUF tensor dequantized into ``dtype`` on ``device``, in its stored
+    shape: Q8_0 on the device (``_q8_0_fields``, the same f32 products as
+    ``dequant_np``), the other types by ``dequant_np`` on the host."""
+    from ...quant import dequant_np as DQ
+
+    if f.tensors[name].ggml_type != DQ.GGML_Q8_0:
+        return _copy(f.tensor(name)).to(device=device, dtype=dtype)
+    qs, d = _q8_0_fields(f, name, device)
+    w = qs.float().reshape(*d.shape, DQ.QK8_0) * d[..., None]
+    return w.reshape(qs.shape).to(dtype)
+
+
+def _gguf_linear(f, name: str, device, dtype, keep_quantized: bool):
+    """One GGUF linear: dense ``nn.Linear``, or its payload carried as is
+    (K-major, transposed on the device)."""
+    from ...quant import dequant_np as DQ
 
     if not keep_quantized:
-        return dense_linear(t(f.tensor(name).T, dtype))
+        return dense_linear(_gguf_dense(f, name, device, dtype).t())
     info = f.tensors[name]
     out_dim, in_dim = info.shape
 
-    def kmajor(flat, group):
-        """[out*in] flat fields -> [in, out] / [in//group, out]."""
-        return np.ascontiguousarray(flat.reshape(out_dim, in_dim // group).T)
+    def kmajor(flat, group, to=None):
+        """[out*in] flat fields -> [in, out] / [in//group, out] on the device."""
+        field = _copy(flat).to(device=device, dtype=to).reshape(out_dim, in_dim // group)
+        return field.t().contiguous()
 
     if info.ggml_type == DQ.GGML_Q8_0:
-        qs, d = DQ.extract_q8_0_fields(f.raw_tensor(name), info.n_elements)
-        return Int8Linear(t(kmajor(qs, 1)), t(kmajor(d, DQ.QK8_0), torch.float32))
+        qs, d = _q8_0_fields(f, name, device)
+        return Int8Linear(qs.t().contiguous(), d.t().contiguous())
     if info.ggml_type == DQ.GGML_Q4_K:
         q, s, b = DQ.extract_q4_k_fields(f.raw_tensor(name), info.n_elements)
-        return Int4Linear(t(pack_nibbles(kmajor(q, 1))), t(kmajor(s, 32), torch.float32),
-                          t(kmajor(b, 32), torch.float32))
+        w4 = pack_nibbles(np.ascontiguousarray(q.reshape(out_dim, in_dim).T))
+        return Int4Linear(_copy(w4).to(device), kmajor(s, 32, torch.float32),
+                          kmajor(b, 32, torch.float32))
     if info.ggml_type == DQ.GGML_Q5_K:
         q, s, b = DQ.extract_q5_k_fields(f.raw_tensor(name), info.n_elements)
-        return Int8Linear(t(kmajor(q, 1)), t(kmajor(s, 32)), t(kmajor(b, 32)))
+        return Int8Linear(kmajor(q, 1), kmajor(s, 32), kmajor(b, 32))
     if info.ggml_type == DQ.GGML_Q6_K:
         q, s = DQ.extract_q6_k_fields(f.raw_tensor(name), info.n_elements)
-        return Int8Linear(t(kmajor(q, 1)), t(kmajor(s, 16)))
+        return Int8Linear(kmajor(q, 1), kmajor(s, 16))
     w_q, s = quantize_int8_blockwise(f.tensor(name).reshape(out_dim, in_dim).T)
-    return Int8Linear(t(w_q), t(s))
+    return Int8Linear(_copy(w_q).to(device), _copy(s).to(device))
 
 
 @torch.no_grad()
@@ -229,7 +257,7 @@ def t5_from_gguf(path: str, cfg: T5Config, device="cuda", dtype=torch.bfloat16,
     f = GGUFFile(path)
     try:
         def norm(name):
-            return _copy(f.tensor(name)).to(device=device, dtype=dtype)
+            return _gguf_dense(f, name, device, dtype)
 
         blocks = []
         for i in range(cfg.num_layers):

@@ -949,16 +949,24 @@ def temporal_tiled_encode(encoder: LtxVaeEncoder, x, tiling: TilingConfig):
 def decode(decoder: LtxVaeDecoder, z, temb=None, *, tiling: Optional[TilingConfig] = None,
            use_tiling: bool = False, use_framewise_decoding: bool = False,
            use_slicing: bool = False, tail_stream_chunks: int = 0,
-           tail_stream_from_ups: bool = False, full_stream_chunks: int = 0):
+           tail_stream_from_ups: bool = False, full_stream_chunks: int = 0,
+           auto_mode: bool = False):
     """The decode facade, in the JAX dispatch order: with ``use_slicing``
     each batch row alone; then temporal tiling when ``use_framewise_decoding``
     and the latents have more frames than a tile; then spatial tiling when
     ``use_tiling`` and a side exceeds a tile; else the direct decode.  Every
-    tile (and the direct call) runs the exact mode asked for (dense, or the
-    streamed mode the chunk keywords name; ``select_decode_mode`` picks
-    one).  Dense and untiled by default: the JAX facade defaults
-    ``use_tiling`` and ``use_framewise_decoding`` to True."""
+    tile (and the direct call) runs the exact mode asked for: dense, or the
+    streamed mode the chunk keywords name.  With ``auto_mode`` and no chunk
+    keyword, ``select_decode_mode`` picks the mode from the latents' shape
+    and the free memory of their device; chunk keywords always win.  Dense
+    and untiled by default: the JAX facade defaults ``use_tiling`` and
+    ``use_framewise_decoding`` to True."""
     tiling = tiling or TilingConfig()
+    if auto_mode and not tail_stream_chunks and not full_stream_chunks:
+        picked = select_decode_mode(decoder.cfg, z.shape, device=z.device)
+        tail_stream_chunks = picked.get("tail_stream_chunks", 0)
+        tail_stream_from_ups = picked.get("tail_stream_from_ups", False)
+        full_stream_chunks = picked.get("full_stream_chunks", 0)
     fn = _decode_mode_fn(decoder, tail_stream_chunks, tail_stream_from_ups, full_stream_chunks)
     if use_slicing and z.shape[0] > 1:
         return torch.cat([_decode_tiled(decoder, z[i:i + 1],

@@ -54,18 +54,6 @@ def dequant_q8_0(raw: np.ndarray, n_elements: int) -> np.ndarray:
     return (qs * d[:, None]).reshape(-1)
 
 
-def extract_q8_0_fields(raw: np.ndarray, n_elements: int):
-    """Split Q8_0 blocks into (qs int8 [n], d f32 [n // 32]) without
-    dequantizing — lets Q8_0 payloads stay int8 in HBM for the fused
-    weight-only matmul (ops/pallas/int8_weight_matmul.py)."""
-    raw = np.frombuffer(raw, dtype=np.uint8) if not isinstance(raw, np.ndarray) else raw
-    nb = n_elements // QK8_0
-    blocks = raw[: nb * 34].reshape(nb, 34)
-    d = _f16(blocks[:, :2].copy().view(np.uint16))[:, 0]
-    qs = blocks[:, 2:].view(np.int8).reshape(-1).copy()
-    return qs, d
-
-
 def extract_q4_k_fields(raw: np.ndarray, n_elements: int):
     """Split Q4_K blocks into the EXACT affine decomposition
     ``w[k] = s[g]*q[k] + b[g]`` over groups of 32 along K:

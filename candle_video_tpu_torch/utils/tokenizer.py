@@ -57,3 +57,11 @@ class MockTokenizer:
             ids[i, : len(toks)] = toks
             mask[i, : len(toks)] = 1
         return ids, mask
+
+
+def make_tokenizer(path: str | None, max_length: int, vocab_size: int):
+    """A ``tokenizer.json`` through ``T5TokenizerWrapper``, or without one the
+    hash tokenizer over a vocabulary of ``vocab_size`` ids (the T5's)."""
+    if path:
+        return T5TokenizerWrapper(path, max_length)
+    return MockTokenizer(vocab_size=vocab_size, model_max_length=max_length)

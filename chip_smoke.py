@@ -11,9 +11,11 @@ counts of every request:
 
 - the ``0.9.8-2b-distilled`` path at 512x768x97 (T5-XXL int8 → 28-layer 2B
   DiT on K1, 7 steps → VAE decode): a cold and a warm request with
-  per-stage times and one more warm request timed end to end only; then the
-  last request's latents decoded again with every eligible decoder conv on
-  K8 (``CVT_CONV3D_IMPL=igemm``) against the default cuDNN decode;
+  per-stage times and one more warm request timed end to end only;
+  ``generate(attn_impl="xla")`` refused before any launch and ``"pallas"``
+  bit-equal to the default; then the last request's latents decoded again
+  with every eligible decoder conv on K8 (``CVT_CONV3D_IMPL=igemm``) against
+  the default cuDNN decode;
 - R1 (``csrc/threefry_normal.cu``: ``jax.random.normal`` drawn on the card)
   against its plain version at the paths' draws (the decode noise, a
   served batch of two rows, an anchor's bf16 posterior, the SVD image
@@ -39,9 +41,11 @@ counts of every request:
   (``generate(sp_mesh=make_mesh(sp=1))`` in a one-rank NCCL group): every
   DiT self-attention on K5, none on K1, against the request without it;
 - the same preset's long clip, 512x768x257 (S = 12672: every DiT
-  self-attention on K2): a cold and a warm request, then the exact decode
-  modes (dense, tail stream, ups-split stream; the full stream on a
-  128x192x369 clip) against the dense decode, with their peak memory;
+  self-attention on K2): a cold and a warm request, ``vae.decode(auto_mode=
+  True)`` against the mode the policy names and a request with
+  ``vae_auto_decode=False``, then the exact decode modes (dense, tail
+  stream, ups-split stream; the full stream on a 128x192x369 clip) against
+  the dense decode, with their peak memory;
 - the serving runtime (``serving.VideoGenerationServer``) on the 2B preset
   at 512x768x97, 7 steps, embeddings injected, the streamed tail in 2
   chunks: a burst of 6 requests at ``max_batch=2`` and the same burst at
@@ -71,6 +75,14 @@ counts of every request:
   (``--weights-path``) in bf16, in bf16 with ``--image``, ``--dit-int8`` and
   ``--dit-int4`` against the in-memory pipeline on the same weights, and a
   full-width T5 HF directory of 2 of the 24 blocks;
+- a full-size T5-XXL GGUF (24 blocks in Q8_0, payloads drawn field by
+  field) through the port's inspection tool (``list``, ``dump-embeds``)
+  and the CLI: the dense and keep-quantized loads and encodes, ``--t5-gguf``
+  against ``--embeddings-file`` of the dumped file on the 2B preset
+  (latents bit-equal), and the ``0.9.5-2b`` preset as published (40 steps,
+  CFG 3 + STG 1 + rescale 0.7, skip block 19, three DiT rows a step) with
+  the T5 kept quantized on K3; then a Q5_K_M file of 2 of the 24 blocks,
+  K3 at qblocks 32 and 16 on its payloads;
 - SVD image-to-video at its published request, 576x1024x14 with CFG (CLIP
   → noise-augmented VAE encode → 25 v-prediction Euler steps of the UNet at
   batch 28, the level-0 self-attention on K6 and levels 1-2 on K1 →
@@ -99,6 +111,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
@@ -1728,10 +1741,47 @@ def run_e2e(card):
     finally:
         V.decode = decode
     RESULTS["e2e"] = runs
+    RESULTS["attn_impl"] = check_attn_impl(card, pipe, want)
     k8_launches = check_igemm_decode(card, pipe.vae, decoded["z"], decoded["temb"])
     inject_launches = check_injected_decode(card, decoded["z"], decoded["temb"])
     release(pipe)
     return runs[-1]["launches"], k8_launches, inject_launches
+
+
+def check_attn_impl(card, pipe, want):
+    """``generate(attn_impl=)`` on the card, the 2B request at 512x768x97
+    with latent output: ``"xla"`` (the plain attention) raises before any
+    launch; ``"pallas"`` gives the latents of the default ``"auto"``
+    request bit for bit, with the same K1 and K3 launches."""
+    from candle_video_tpu_torch.models.ltx_video.pipeline import generate
+    from candle_video_tpu_torch.ops.kernels import _build
+
+    kw = dict(prompt="A kite over a windy beach", height=512, width=768, num_frames=97,
+              seed=47, output_type="latent")
+    _build.reset_launches()
+    try:
+        generate(pipe, attn_impl="xla", **kw)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("generate(attn_impl='xla') ran on the card")
+    torch.cuda.synchronize()
+    if any(_build.LAUNCHES.values()):
+        raise AssertionError(f"attn_impl='xla' launched {dict(_build.LAUNCHES)} before refusing")
+    latents, launches = {}, {}
+    for impl in ("auto", "pallas"):
+        _build.reset_launches()
+        latents[impl] = generate(pipe, attn_impl=impl, **kw)
+        torch.cuda.synchronize()
+        launches[impl] = dict(_build.LAUNCHES)
+    counts = {k: want[k] for k in ("flash_attention_packed", "w8_matmul")}
+    equal = torch.equal(latents["auto"], latents["pallas"])
+    log(f"[e2e] attn_impl: 'xla' refused before any launch ({refused[:60]}...); 'pallas' "
+        f"latents bit-equal to 'auto': {equal}; launches {launches['pallas']} | {card}")
+    if not equal or any(launches[i].get(k, 0) != n for i in launches for k, n in counts.items()):
+        raise AssertionError(f"attn_impl='pallas' differs from 'auto': equal {equal}, "
+                             f"launches {launches}, want {counts}")
+    return dict(refused=refused, launches=launches, bit_equal=equal)
 
 
 def check_injected_decode(card, z, temb, chunks: int = 2):
@@ -2478,10 +2528,37 @@ def run_long(card):
             V.decode = decode
         runs.append(row)
     RESULTS["e2e_long"] = runs
+    RESULTS["auto_decode"] = check_auto_decode(card, pipe, decoded["z"], decoded["temb"], want)
     check_decode_modes(card, pipe.vae, decoded["z"], decoded["temb"], video)
     del video
     release(pipe)
     return runs[-1]["launches"]
+
+
+def check_auto_decode(card, pipe, z, temb, want):
+    """On a 257-frame request's latents, ``vae.decode(auto_mode=True)``
+    equals the decode in the mode ``select_decode_mode`` names for the
+    card's free memory, bit for bit; then one more 257-frame request with
+    ``vae_auto_decode=False``, whose ``decode_mode`` is logged (dense, as
+    no chunk keyword is given)."""
+    from candle_video_tpu_torch.models.ltx_video import vae as V
+
+    picked = V.select_decode_mode(pipe.vae.cfg, z.shape, device="cuda")
+    free_gib = V._device_free_bytes("cuda") / 2**30
+    auto = V.decode(pipe.vae, z, temb, auto_mode=True)
+    equal = torch.equal(auto, V.decode(pipe.vae, z, temb, **picked))
+    del auto
+    torch.cuda.empty_cache()
+    row, _ = run_request(pipe, "vae_auto_decode=False", "A heron wading at dawn", 62, want,
+                         card, tag="long", num_frames=257, vae_auto_decode=False)
+    used = {k: v for k, v in row["decode_mode"].items() if v}
+    log(f"[long] decode(auto_mode=True) with {free_gib:.2f} GiB free: mode {picked or 'dense'}, "
+        f"bit-equal to the decode in that mode: {equal}; generate(vae_auto_decode=False) "
+        f"decode_mode {used or 'dense'} | {card}")
+    if not equal or used:
+        raise AssertionError(f"auto_mode decode equal {equal}; vae_auto_decode=False ran {used}")
+    return dict(picked=picked, free_gib=free_gib, bit_equal=equal, off_mode=row["decode_mode"],
+                off_wall_s=row["wall_s"])
 
 
 # The served 2B request (JAX ``benches/serving_bench.py``): 7 steps, embeds
@@ -3708,6 +3785,453 @@ def run_cli(card):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the GGUF T5-XXL: a full-size Q8_0 file through the inspection tool and the
+# CLI, and the Q5_K_M mix of 2 blocks
+# ---------------------------------------------------------------------------
+
+T5_ROLES = ("token_embd", "attn_q", "attn_k", "attn_v", "attn_o", "ffn_gate", "ffn_up",
+            "ffn_down")
+
+
+def t5_role_std(cfg) -> dict:
+    """The std of each layer role's dequantized weights in the random
+    files: T5's own initializer (HF ``T5PreTrainedModel._init_weights``,
+    factor 1), so that every width runs the same dynamics."""
+    d, dkv, inner, ff = cfg.d_model, cfg.d_kv, cfg.num_heads * cfg.d_kv, cfg.d_ff
+    return {"token_embd": 1.0, "attn_q": (d * dkv) ** -0.5, "attn_k": d ** -0.5,
+            "attn_v": d ** -0.5, "attn_o": inner ** -0.5, "ffn_gate": d ** -0.5,
+            "ffn_up": d ** -0.5, "ffn_down": ff ** -0.5}
+
+
+# a llama.cpp Q5_K_M file's types in the first blocks of 24 (its
+# use_more_bits rule puts attn_v and ffn_down of blocks 0-2 in Q6_K)
+Q8_0 = dict.fromkeys(T5_ROLES, "Q8_0")
+Q5_K_M = dict.fromkeys(T5_ROLES, "Q5_K") | {"attn_v": "Q6_K", "ffn_down": "Q6_K"}
+# Keep-quantized encode against the dense encode of the same file, rel in
+# norm over [1, 128, d_model].  Both round the same weights once to bf16
+# (Q8_0: bf16(q·d) either way) and sum in f32 in another order; Q5_K's K3
+# route rounds q·s alone and adds the min as an f32 rank-G correction.  A
+# 1-ulp difference in 0.02% of a linear's outputs grows through the blocks
+# to the bf16 floor: on the CPU the plain versions read 2.35e-2 to 2.51e-2
+# (Q8_0, 24 blocks, at 1/8, 1/4 and 1/2 of the width; the dense bf16 encoder
+# reads 2.53e-2 from its own f32 run) and 1.10e-2 to 1.16e-2 (Q5_K_M, 2
+# blocks, at 1/4, 1/2 and the full width), tests/test_torch_gguf_t5.py.
+# The card's limits are 3x the largest reading, stated before its first run.
+GGUF_T5_TOL = dict(q8_0=7.5e-2, q5_k_m=3.5e-2)
+GGUF_PROMPT = "An origami crane unfolding on a wooden desk in morning light"
+GGUF_SEED = 123
+
+
+def gguf_payload(kind: str, n: int, std: float, g, device):
+    """``n`` values of GGUF type ``kind`` ("Q8_0", "Q5_K" or "Q6_K") as raw
+    blocks (uint8, on the host), each field drawn from ``g`` on ``device``
+    with no quantizer run: Q8_0 codes N(0, 32²) rounded and clipped to
+    ±127 and an f16 scale ``std / 32`` each 32 values; the K-quants' bytes
+    uniform and their f16 ``d`` (and Q5_K's ``dmin = 15.5·d``, which
+    centres the weights) set so that the weights' std is ``std`` (±25% a
+    block)."""
+    def f16_bytes(x):
+        return x.to(torch.float16).view(torch.uint8).reshape(-1, 2)
+
+    def jitter(nb):
+        return torch.rand(nb, generator=g, device=device) * 0.5 + 0.75
+
+    if kind == "Q8_0":
+        nb = n // 32
+        codes = torch.randn(nb, 32, generator=g, device=device).mul_(32).round_()
+        codes = codes.clamp_(-127, 127).to(torch.int8).view(torch.uint8)
+        blocks = torch.cat([f16_bytes(jitter(nb) * (std / 32)), codes], dim=1)
+    else:
+        nb = n // 256
+        size = {"Q5_K": 176, "Q6_K": 210}[kind]
+        blocks = torch.randint(0, 256, (nb, size), generator=g, device=device,
+                               dtype=torch.uint8)
+        if kind == "Q5_K":  # w = d·sc·q - dmin·m: sc, m in 0..63, q in 0..31
+            d = jitter(nb) * (std / 527)
+            blocks[:, 0:2], blocks[:, 2:4] = f16_bytes(d), f16_bytes(15.5 * d)
+        else:  # w = d·sc·(q - 32): sc int8, q in 0..63
+            blocks[:, 208:210] = f16_bytes(jitter(nb) * (std / 1365))
+    return blocks.cpu().numpy().reshape(-1)
+
+
+def write_t5_gguf(path, cfg, types: dict, seed: int, device) -> dict:
+    """A T5 encoder of ``cfg`` as a GGUF file with the names
+    ``t5_from_gguf`` reads (``enc.blk.N.*``): the embedding and every block
+    linear in ``types[role]`` at ``t5_role_std``, the norms F32 near 1 and
+    the relative bias F32 N(0, 1), drawn from ``seed`` on ``device`` and
+    written by the port's ``write_gguf``.  Returns the tensor count, the
+    count of each type, the size and the seconds to draw and to write."""
+    import numpy as np
+
+    from candle_video_tpu_torch.quant import dequant_np as DQ
+    from candle_video_tpu_torch.quant.gguf import write_gguf
+
+    type_ids = {name: tid for tid, name in DQ.TYPE_NAMES.items()}
+    g = torch.Generator(device=device).manual_seed(seed)
+    d, ff = cfg.d_model, cfg.d_ff
+    shapes = {"attn_q": (d, d), "attn_k": (d, d), "attn_v": (d, d), "attn_o": (d, d),
+              "ffn_gate": (ff, d), "ffn_up": (ff, d), "ffn_down": (d, ff)}
+
+    std = t5_role_std(cfg)
+
+    def payload(role, shape):
+        return type_ids[types[role]], shape, gguf_payload(types[role], math.prod(shape),
+                                                          std[role], g, device)
+
+    def f32(shape, mean, std):
+        x = torch.randn(shape, generator=g, device=device) * std + mean
+        return DQ.GGML_F32, shape, x.cpu().numpy().view(np.uint8).reshape(-1)
+
+    t0 = time.perf_counter()
+    tensors = {"token_embd.weight": payload("token_embd", (cfg.vocab_size, d)),
+               "enc.output_norm.weight": f32((d,), 1.0, 0.1)}
+    for i in range(cfg.num_layers):
+        for role, shape in shapes.items():
+            tensors[f"enc.blk.{i}.{role}.weight"] = payload(role, shape)
+        tensors[f"enc.blk.{i}.attn_norm.weight"] = f32((d,), 1.0, 0.1)
+        tensors[f"enc.blk.{i}.ffn_norm.weight"] = f32((d,), 1.0, 0.1)
+    tensors["enc.blk.0.attn_rel_b.weight"] = f32(
+        (cfg.relative_attention_num_buckets, cfg.num_heads), 0.0, 1.0)
+    t1 = time.perf_counter()
+    write_gguf(path, tensors, {"general.architecture": "t5", "t5.block_count": cfg.num_layers})
+    return dict(tensors=len(tensors), types=dict(collections.Counter(
+        DQ.TYPE_NAMES[t[0]] for t in tensors.values())), gib=os.path.getsize(path) / 2**30,
+        draw_s=t1 - t0, write_s=time.perf_counter() - t1)
+
+
+def t5_tokens(cfg, device, seed: int = 6, n: int = 128, kept: int = 40):
+    """``n`` random token ids from ``seed``, the last ``n - kept`` padded."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (1, n), generator=g, device=device)
+    mask = torch.ones(1, n, device=device)
+    mask[:, kept:] = 0
+    return ids, mask
+
+
+def gguf_t5_drift(path, cfg, device, dtype=torch.bfloat16) -> dict:
+    """The keep-quantized encoder of a GGUF T5 against the dense encoder of
+    the same file on ``t5_tokens``: ``errors`` of the two encodes, with
+    both encoders and the tokens."""
+    from candle_video_tpu_torch.models.ltx_video import t5 as T5
+
+    dense = T5.t5_from_gguf(path, cfg, device, dtype)
+    kept = T5.t5_from_gguf(path, cfg, device, dtype, keep_quantized=True)
+    ids, mask = t5_tokens(cfg, device)
+    with torch.no_grad():
+        want, got = dense(ids, mask), kept(ids, mask)
+    return dict(errors(got, want), dense=dense, kept=kept, ids=ids, mask=mask)
+
+
+@contextlib.contextmanager
+def timed_calls(module, name, seen: dict, key: str):
+    """``module.name`` timed to a synchronize for the block: each call's
+    seconds appended to ``seen[key]``, and the resident GiB of what it
+    returned (a module) to ``seen[key + "_gib"]``."""
+    fn = getattr(module, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        seen.setdefault(key, []).append(time.perf_counter() - t0)
+        if isinstance(out, torch.nn.Module):
+            seen.setdefault(key + "_gib", []).append(resident_gib(out))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def gguf_cli_run(card, name, argv, want, out_dir):
+    """``cli.main(argv)`` with its T5 load timed and its ``generate`` call
+    given ``stage_times``: the launches of the whole call against ``want``,
+    the output checked finite (and a video in [0, 255]); returns its row and
+    the final latents of a latent run."""
+    from candle_video_tpu_torch import cli
+    from candle_video_tpu_torch.models.ltx_video import loader as L
+    from candle_video_tpu_torch.ops.kernels import _build
+
+    seen: dict = {}
+    generate = cli.generate
+
+    def staged(pipe, **kw):
+        times: dict = {}
+        out = generate(pipe, stage_times=times, **kw)
+        seen.update(times=times, out_min=out.min().item(), out_max=out.max().item(),
+                    finite=bool(torch.isfinite(out).all()))
+        return out
+
+    out = os.path.join(out_dir, name)
+    argv = [*argv, "--seed", str(GGUF_SEED), "--output-dir", out]
+    cli.generate = staged
+    try:
+        with timed_calls(cli, "load_t5", seen, "t5_load_s"):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+    finally:
+        cli.generate = generate
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = seen.pop("times")
+    steps = [1e3 * s for s in times["denoise_steps"]]
+    row = dict(name=name, argv=argv, wall_s=wall, launches=launches,
+               t5_load_s=seen["t5_load_s"][0], t5_gib=seen["t5_load_s_gib"][0]
+               if "t5_load_s_gib" in seen else None, t5_encode_s=times["t5_encode"],
+               step_ms=steps, step_mean_ms=statistics.mean(steps),
+               step_median_ms=statistics.median(steps), generate_s=times["total"],
+               vae_decode_s=times.get("vae_decode"), decode_mode=times.get("decode_mode"),
+               out_min=seen["out_min"], out_max=seen["out_max"])
+    log(f"[gguf] cli {name}: rc={rc} wall {wall:.2f} s (T5 load {row['t5_load_s']:.2f} s"
+        + (f", {row['t5_gib']:.2f} GiB resident" if row["t5_gib"] is not None else ", no T5")
+        + f"), generate {row['generate_s']:.3f} s: t5 encode "
+        f"{1e3 * row['t5_encode_s']:.1f} ms, {len(steps)} steps mean "
+        f"{row['step_mean_ms']:.1f} ms median {row['step_median_ms']:.1f} ms (first "
+        f"{steps[0]:.1f})" + (f", vae_decode {row['vae_decode_s']:.3f} s" if
+                              row["vae_decode_s"] is not None else "")
+        + f"; output in [{row['out_min']:.3f}, {row['out_max']:.3f}]; launches {launches} "
+        f"| {card}")
+    if rc != 0 or not seen["finite"]:
+        raise AssertionError(f"gguf cli {name}: rc {rc}, finite {seen['finite']}")
+    if any(launches.get(k, 0) != n for k, n in want.items()):
+        raise AssertionError(f"gguf cli {name}: launch counts {launches}, want {want}")
+    latents = None
+    if "latent" in argv:
+        latents = L.load_safetensors(os.path.join(out, "latents.safetensors"))["latents"].clone()
+    elif not (0.0 <= row["out_min"] and row["out_max"] <= 255.0):
+        raise AssertionError(f"gguf cli {name}: video outside [0, 255]")
+    return row, latents
+
+
+def check_gguf_q5_k_m(card, root):
+    """A full-width GGUF T5 of 2 of the 24 blocks in the Q5_K_M mix (the
+    depth cut is the only one), loaded keep-quantized and dense: the
+    128-token encodes within ``GGUF_T5_TOL["q5_k_m"]`` (14 K3 launches: Q5_K
+    at qblock 32 with its rank-G correction, Q6_K at qblock 16); then K3 on
+    the file's own payloads against its plain version at the ffn_down shape
+    (Q6_K, qblock 16: M = 128, K = 10240, N = 4096) and the ffn_gate shape
+    (Q5_K, qblock 32), timed beside its bound, the plain version and a bf16
+    ``matmul`` on the dequantized weight."""
+    from candle_video_tpu_torch.models.ltx_video import t5 as T5
+    from candle_video_tpu_torch.models.ltx_video.configs import T5Config
+    from candle_video_tpu_torch.ops.kernels import _build
+    from candle_video_tpu_torch.ops.kernels import int8_weight_matmul as K3
+
+    cfg = T5Config(num_layers=2)
+    path = os.path.join(root, "t5-xxl-2-blocks-Q5_K_M-random.gguf")
+    info = write_t5_gguf(path, cfg, Q5_K_M, seed=32, device="cuda")
+    seen: dict = {}
+    with timed_calls(T5, "t5_from_gguf", seen, "load_s"):
+        drift = gguf_t5_drift(path, cfg, "cuda")
+    kept = drift.pop("kept")
+    _build.reset_launches()
+    kept(drift.pop("ids"), drift.pop("mask"))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    del drift["dense"]
+    err = drift
+    log(f"[gguf] Q5_K_M, full width, 2 of 24 blocks (depth cut): {info['types']}, "
+        f"{info['gib']:.3f} GiB written in {info['write_s']:.2f} s; loaded dense in "
+        f"{seen['load_s'][0]:.2f} s ({seen['load_s_gib'][0]:.3f} GiB), keep-quantized in "
+        f"{seen['load_s'][1]:.2f} s ({seen['load_s_gib'][1]:.3f} GiB); 128-token encode on K3 "
+        f"against dense: rel={err['rel']:.3e} max_abs={err['max_abs']:.3e} (limit rel "
+        f"{GGUF_T5_TOL['q5_k_m']}); launches {launches} | {card}")
+    if not err["rel"] <= GGUF_T5_TOL["q5_k_m"]:
+        raise AssertionError(f"Q5_K_M keep-quantized encode drifts from dense: {err}")
+    if launches.get("w8_matmul", 0) != 14 or launches.get("w8_matmul_dequant", 0):
+        raise AssertionError(f"Q5_K_M encode launches {launches}, want 14 w8_matmul")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for label, lin in (("T5 ffn_down Q6_K qb16", kept.blocks[0].wo),
+                       ("T5 ffn_gate Q5_K qb32", kept.blocks[0].wi_0)):
+        kk, n = lin.w_q.shape
+        qb = kk // lin.s.shape[0]
+        x = torch.randn(128, kk, generator=g, device="cuda").bfloat16()
+        call = lambda: K3.w8_matmul(x, lin.w_q, lin.s, qblock=qb)  # noqa: E731
+        plain = lambda: K3.w8_matmul_plain(x, lin.w_q, lin.s, qblock=qb)  # noqa: E731
+        e = errors(call(), plain())
+        wd = K3.dequantize(lin.w_q, lin.s, qb)
+        row = dict(label=label, m=128, k=kk, n=n, qblock=qb, ms=cuda_ms(call, iters=20),
+                   plain_ms=cuda_ms(plain, iters=5),
+                   kernel_ms=device_ms_of(kernel_device_ms(call, repeats=3),
+                                          "weight_only_matmul_kernel"),
+                   bf16_matmul_ms=cuda_ms(lambda: torch.matmul(x, wd), iters=20), **e,
+                   **bound(2.0 * 128 * kk * n,
+                           2 * 128 * kk + kk * n + 4 * (kk // qb) * n + 2 * 128 * n))
+        log(f"[gguf] K3 {label} M=128 K={kk} N={n} qb={qb} on the file's payload: "
+            f"rel={e['rel']:.3e} max_abs={e['max_abs']:.3e} (limit {K3_TOL['rel']}) | "
+            f"{row['ms']:.4f} ms through the wrapper, {row['kernel_ms']} ms on the device "
+            f"({row['bound_ms']:.4f} ms bound, {row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, bf16 matmul on the dequantized weight "
+            f"{row['bf16_matmul_ms']:.4f} ms | {card}")
+        if not e["rel"] <= K3_TOL["rel"]:
+            raise AssertionError(f"K3 {label} disagrees with its plain version: {e}")
+        rows.append(row)
+    del kept
+    os.remove(path)
+    return dict(file=info, load_s=seen["load_s"], resident_gib=seen["load_s_gib"],
+                encode=err, launches=launches, k3=rows)
+
+
+def host_route_block_s(path, block: int = 0) -> float:
+    """Seconds of the dense route ``t5_from_gguf`` took before it split
+    Q8_0 on the card, for block ``block``'s seven linears: the NumPy
+    dequant, a transposed copy on the host, the upload in bf16."""
+    import numpy as np
+
+    from candle_video_tpu_torch.quant.gguf import GGUFFile
+
+    f = GGUFFile(path)
+    try:
+        t0 = time.perf_counter()
+        for role in T5_ROLES[1:]:
+            w = f.tensor(f"enc.blk.{block}.{role}.weight")
+            torch.from_numpy(np.array(w.T, order="C")).to("cuda", torch.bfloat16)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    finally:
+        f.close()
+
+
+def run_gguf_t5(card):
+    """A full-size T5-XXL GGUF, all 24 blocks in Q8_0 (4.6 G codes written
+    field by field, ``write_t5_gguf``), through the port's inspection tool
+    and CLI: ``list``; ``dump-embeds`` (the hash tokenizer) to an
+    embeddings file; the dense and keep-quantized loads and encodes (the
+    file's embeddings are the dense encode bit for bit; the K3 encode within
+    ``GGUF_T5_TOL["q8_0"]`` of it; 168 K3 a keep-quantized encode); ``cli
+    --t5-gguf`` against ``cli --embeddings-file`` on the default preset at
+    512x768x97, latents bit-equal; the ``0.9.5-2b`` preset as published
+    (40 steps, CFG 3 + STG 1 + rescale 0.7, skip block 19, a negative
+    prompt: three DiT rows a step) with the T5 kept quantized at 512x768x97.
+    Then the Q5_K_M mix (``check_gguf_q5_k_m``).  The files are deleted at
+    the end.  Returns the 0.9.5-2b request's launches."""
+    from candle_video_tpu_torch.models.ltx_video import loader as L
+    from candle_video_tpu_torch.models.ltx_video import t5 as T5
+    from candle_video_tpu_torch.models.ltx_video.configs import t5_xxl
+    from candle_video_tpu_torch.ops.kernels import _build
+    from candle_video_tpu_torch.utils import inspect_weights as IW
+
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT_DIR, "gguf_t5")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "t5-v1_1-xxl-encoder-Q8_0-random.gguf")
+    emb_path = os.path.join(root, "embeddings.safetensors")
+    cfg = t5_xxl()
+    info = write_t5_gguf(path, cfg, Q8_0, seed=31, device="cuda")
+    log(f"[gguf] wrote the full-size T5-XXL GGUF (24 blocks, Q8_0): {info['tensors']} tensors "
+        f"{info['types']}, {info['gib']:.3f} GiB, drawn in {info['draw_s']:.2f} s and written "
+        f"in {info['write_s']:.2f} s | {card}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        IW.main(["list", path])
+    lines = buf.getvalue().splitlines()
+    listed = collections.Counter(ln.rsplit(None, 1)[-1] for ln in lines[1:]
+                                 if not ln.startswith("  meta "))
+    log(f"[gguf] inspect_weights list: {lines[0]!r}; tensors by type {dict(listed)}")
+    if not lines[0].startswith(f"# GGUF: {info['tensors']} tensors") or \
+            dict(listed) != info["types"]:
+        raise AssertionError(f"inspect_weights list disagrees with the file: {lines[:3]}")
+
+    seen: dict = {}
+    with timed_calls(T5, "t5_from_gguf", seen, "load_s"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            IW.main(["dump-embeds", "--t5-gguf", path, "--prompt", GGUF_PROMPT,
+                     "--max-length", "128", "--out", emb_path])
+        dump_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        err = gguf_t5_drift(path, cfg, "cuda")
+    dense, kept = err.pop("dense"), err.pop("kept")
+    del err["ids"], err["mask"]
+    emb = L.load_safetensors(emb_path)
+    tok = IW.make_tokenizer(None, 128, cfg.vocab_size)
+    ids, mask = (torch.from_numpy(a.astype("int64")).cuda() for a in tok.encode_batch(
+        [GGUF_PROMPT], 128))
+    mask = mask.float()
+    want = dense(ids, mask)
+    _build.reset_launches()
+    got = kept(ids, mask)
+    torch.cuda.synchronize()
+    kept_launches = dict(_build.LAUNCHES)
+    same_file = torch.equal(emb["prompt_embeds"].cuda(), want.float())
+    dense_ms = cuda_ms(lambda: dense(ids, mask), iters=5)
+    kept_ms = cuda_ms(lambda: kept(ids, mask), iters=5)
+    log(f"[gguf] dump-embeds: {dump_s:.2f} s with its dense load ({seen['load_s'][0]:.2f} s), "
+        f"{buf.getvalue().splitlines()[-1]!r},"
+        f" equal to the dense encode: {same_file}; loads: dense {seen['load_s'][1]:.2f} s "
+        f"({seen['load_s_gib'][1]:.2f} GiB resident), keep-quantized {seen['load_s'][2]:.2f} s "
+        f"({seen['load_s_gib'][2]:.2f} GiB); encode of 128 tokens: dense {dense_ms:.2f} ms, "
+        f"keep-quantized on K3 {kept_ms:.2f} ms; K3 against dense on t5_tokens (40 of 128 "
+        f"kept) rel={err['rel']:.3e} "
+        f"max_abs={err['max_abs']:.3e} (limit rel {GGUF_T5_TOL['q8_0']}); launches of one "
+        f"keep-quantized encode {kept_launches} | {card}")
+    if not same_file:
+        raise AssertionError("dump-embeds wrote other embeddings than the dense encode")
+    if not err["rel"] <= GGUF_T5_TOL["q8_0"]:
+        raise AssertionError(f"Q8_0 keep-quantized encode drifts from dense: {err}")
+    if kept_launches.get("w8_matmul", 0) != 168:
+        raise AssertionError(f"keep-quantized encode launches {kept_launches}, want 168 K3")
+    del dense, kept, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_block_s = host_route_block_s(path)
+    log(f"[gguf] the former host route (NumPy dequant, transposed copy, upload) of one block: "
+        f"{host_block_s:.2f} s, x24 = {24 * host_block_s:.1f} s, against the dense load's "
+        f"{seen['load_s'][1]:.2f} s with Q8_0 split on the card | {card}")
+
+    plain_2b = {"flash_attention_packed": 196, "w8_matmul": 0, "w4_matmul": 0,
+                "threefry_normal": 0}
+    t5_row, lat_t5 = gguf_cli_run(card, "distilled_t5_gguf",
+                                  ["--t5-gguf", path, "--prompt", GGUF_PROMPT,
+                                   "--output-type", "latent"], plain_2b, root)
+    emb_row, lat_emb = gguf_cli_run(card, "distilled_embeddings_file",
+                                    ["--embeddings-file", emb_path, "--output-type", "latent"],
+                                    plain_2b, root)
+    diff = (lat_t5 - lat_emb).abs().max().item()
+    log(f"[gguf] --t5-gguf against --embeddings-file (dump-embeds): latents "
+        f"{tuple(lat_t5.shape)} max |diff| {diff:.3e}, bit-equal: {torch.equal(lat_t5, lat_emb)}"
+        f" | {card}")
+    if not torch.equal(lat_t5, lat_emb):
+        raise AssertionError(f"--embeddings-file latents differ from --t5-gguf's by {diff}")
+    # 40 steps x 28 layers of K1 at B = 3; the prompt's and the negative
+    # prompt's encodes, 168 K3 each; the decode noise
+    dev_want = {"flash_attention_packed": 28 * 40, "w8_matmul": 2 * 168, "w4_matmul": 0,
+                "w8_matmul_dequant": 0, "flash_attention_packed_long": 0,
+                "threefry_normal": 1}
+    dev_row, _ = gguf_cli_run(card, "0.9.5-2b_t5_keep_quantized",
+                              ["--version", "0.9.5-2b", "--t5-gguf", path, "--t5-keep-quantized",
+                               "--prompt", GGUF_PROMPT, "--negative-prompt", DEV_NEGATIVE],
+                              dev_want, root)
+    log(f"[gguf] 0.9.5-2b request: step mean {dev_row['step_mean_ms']:.1f} ms = "
+        f"{dev_row['step_mean_ms'] / t5_row['step_mean_ms']:.2f}x the distilled step "
+        f"({t5_row['step_mean_ms']:.1f} ms, the --t5-gguf run); generate "
+        f"{dev_row['generate_s']:.2f} s, the CLI call {dev_row['wall_s']:.2f} s | {card}")
+    os.remove(path)
+    q5 = check_gguf_q5_k_m(card, root)
+    shutil.rmtree(root)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[gguf] phase took {phase_s:.1f} s | {card}")
+    RESULTS["gguf_t5"] = dict(
+        file=info, listed=dict(listed), dump_embeds_s=dump_s, load_s=seen["load_s"],
+        host_route_block_s=host_block_s,
+        resident_gib=seen["load_s_gib"], encode_ms=dict(dense=dense_ms, kept=kept_ms),
+        kept_vs_dense=err, kept_launches=kept_launches,
+        cli={r["name"]: {k: v for k, v in r.items() if k != "argv"}
+             for r in (t5_row, emb_row, dev_row)},
+        round_trip_bit_equal=True, q5_k_m=q5, phase_s=phase_s)
+    return dev_row["launches"]
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--guided-drift"]):
@@ -3763,6 +4287,7 @@ def main(argv=None) -> int:
     launches_dev_w8 = run_13b_w8(card)
     launches_pp, launches_tp = run_parallel(card)
     run_checkpoint(card)
+    launches_gguf = run_gguf_t5(card)
     run_cli(card)
     k6 = check_k6(card)
     check_svd_slice(card)
@@ -3797,14 +4322,17 @@ def main(argv=None) -> int:
     # path read with the counts set to 0 just before it
     kernels[0]["launches_by_path"] = {
         "t2v 2B 97f": launches["flash_attention_packed"],
+        "0.9.5-2b 97f cfg+stg": launches_gguf["flash_attention_packed"],
         "i2v 2B 97f": launches_i2v["flash_attention_packed"],
         "serving 2B 97f b2": launches_serving["flash_attention_packed"],
         "13b-dev w4 97f": launches_dev_w4["flash_attention_packed"],
         "13b tp=2 rank 97f": launches_tp["flash_attention_packed"],
         "13b-dev pp=1 M=3 97f": launches_pp["flash_attention_packed"]}
-    # K3 and K4 on the 13B-dev request (W8 at 4 steps, W4 at 30)
+    # K3 and K4 on the 13B-dev request (W8 at 4 steps, W4 at 30); K3 on the
+    # 0.9.5-2b request's two encodes by the GGUF T5 kept quantized
     kernels[2]["launches_by_path"] = {"t2v 2B 97f": launches["w8_matmul"],
-                                      "13b-dev": launches_dev_w8["w8_matmul"]}
+                                      "13b-dev": launches_dev_w8["w8_matmul"],
+                                      "t5 gguf q8_0 keep-quantized": launches_gguf["w8_matmul"]}
     kernels[3]["launches_by_path"] = {"13b w4 97f": launches_13b["w4_matmul"],
                                       "13b-dev": launches_dev_w4["w4_matmul"]}
     kernels[-1]["launches_by_path"] = {"igemm decode 97f": launches_k8["conv3d_igemm"],

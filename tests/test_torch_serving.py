@@ -411,9 +411,9 @@ def test_worker_error_reaches_the_caller(pipes):
 
 def test_unknown_generate_keyword_raises(pipes):
     """``generate_kwargs`` take only what the port's generate() takes:
-    ``attn_impl`` is not ported."""
-    server = PS.VideoGenerationServer(pipes[1], [PS.ShapeBucket(*SMALL)], attn_impl="xla")
-    with pytest.raises(TypeError, match="attn_impl"):
+    ``decode_warmup`` (XLA compile overlap) is not carried over."""
+    server = PS.VideoGenerationServer(pipes[1], [PS.ShapeBucket(*SMALL)], decode_warmup=True)
+    with pytest.raises(TypeError, match="decode_warmup"):
         server.generate_sync(_reqs(1)[1])
 
 
@@ -458,7 +458,8 @@ def _serve_args(tmp_path, **kw):
     return argparse.Namespace(**{**dict(
         height=64, width=64, num_frames=5, num_inference_steps=None, guidance_scale=None,
         negative_prompt="bad", serve_max_batch=1, pcg_rng=False, vae_stream_chunks=0,
-        output_dir=str(tmp_path), frame_rate=25.0, max_sequence_length=8, seed=5), **kw})
+        output_dir=str(tmp_path), frame_rate=25.0, max_sequence_length=8, seed=5,
+        attn_impl="auto"), **kw})
 
 
 def test_cli_run_serve_loop(pipes_vae, tmp_path, monkeypatch):
