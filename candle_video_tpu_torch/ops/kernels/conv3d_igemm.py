@@ -10,10 +10,12 @@ source note says what bounds it.  It pads nothing in memory: the time
 padding is a clamp of the frame index and the space padding a zero-fill of
 the loads that fall outside the frame.
 
-Layout: the port's decoder is logically NCDHW.  The kernel reads and writes
-``torch.channels_last_3d`` tensors (NDHWC in memory), so chained K8 convs
-pay no copy; an input in another layout is copied to channels last first,
-and ``RELAYOUT`` counts those copies and their bytes.  The weight
+Layout: the kernel reads and writes ``torch.channels_last_3d`` tensors
+(NDHWC in memory).  The VAE's channels-last walks (``ops/conv3d.py``
+``causal_conv3d_cl``) hand it such views of their ``[B, T, H, W, C]``
+activations, so they pay no copy; an input in another layout (the NCDHW
+walks') is copied to channels last first, and ``RELAYOUT`` counts those
+copies and their bytes.  The weight
 ``[O, C, 3, 3, 3]`` is packed once to ``[27, O, C]`` and kept beside it
 (``packed_weight``): the copy is re-made only when the weight changes.
 

@@ -13,9 +13,11 @@ counts of every request:
   DiT on K1, 7 steps → VAE decode): a cold and a warm request with
   per-stage times and one more warm request timed end to end only;
   ``generate(attn_impl="xla")`` refused before any launch and ``"pallas"``
-  bit-equal to the default; then the last request's latents decoded again
-  with every eligible decoder conv on K8 (``CVT_CONV3D_IMPL=igemm``) against
-  the default cuDNN decode;
+  bit-equal to the default; the requests decode in the default
+  channels-last layout (``CVT_DECODER_LAYOUT``); then the last request's
+  latents decoded again in both layouts, each on cuDNN and with every
+  eligible decoder conv on K8 (``CVT_CONV3D_IMPL=igemm``; no copy before
+  K8 in channels-last), against the NCDHW cuDNN decode;
 - R1 (``csrc/threefry_normal.cu``: ``jax.random.normal`` drawn on the card)
   against its plain version at the paths' draws (the decode noise, a
   served batch of two rows, an anchor's bf16 posterior, the SVD image
@@ -31,9 +33,9 @@ counts of every request:
   a hard anchor on frame 0 through the VAE encoder, every token at its own
   timestep through the DiT's AdaLN): a warm-up and a timed request, the
   anchor's latent frame held bit for bit, and a two-anchor request (frame
-  0, and the last latent frame at strength 0.9); then a 97-frame encode on
-  cuDNN and with every eligible encoder conv on K8, and the full-size tiled
-  decode against the dense one; a tiny image-to-video slice and tiny tiled
+  0, and the last latent frame at strength 0.9); then a 97-frame encode in
+  both layouts, on cuDNN and with every eligible encoder conv on K8, and
+  the full-size tiled decode against the dense one; a tiny image-to-video slice and tiny tiled
   encode and decode against the CPU before them;
 - the same request on the W8A8 DiT tier (``quantize_transformer_w8a8``:
   every block linear on K7) against the bf16 request;
@@ -1816,7 +1818,7 @@ def check_injected_decode(card, z, temb, chunks: int = 2):
 
     dense, dense_s, dense_n = timed(lambda: dec(z, temb, noise_key=key))
     streamed, stream_s, stream_n = timed(lambda: V.decoder_tail_streamed(
-        dec, V.decoder_head_forward(dec, z, temb, noise_key=key), temb, n_chunks=chunks,
+        dec, V.decoder_head_forward_cl(dec, z, temb, noise_key=key), temb, n_chunks=chunks,
         noise_key=key))
     quiet, quiet_s, quiet_n = timed(lambda: dec(z, temb))
     spans = len(V.stream_spans(dense.shape[2], chunks))
@@ -1914,62 +1916,116 @@ def conv_impl(impl):
             os.environ["CVT_CONV3D_IMPL"] = saved
 
 
-# The decode on K8 against the cuDNN decode of the same latents, on [0, 255].
-# Both run bf16 convs with f32 sums; a 44-conv random-weight decoder carries
-# one-ulp differences forward.  Prediction before the first run: 45-60 dB.
+# Each layout and conv route's decode against the NCDHW cuDNN decode of the
+# same latents, on [0, 255].  All run bf16 convs with f32 sums; a 44-conv
+# random-weight decoder carries one-ulp differences forward.  Prediction
+# before the first run: 45-60 dB.
 IGEMM_DECODE_PSNR_DB = 40.0
+# The layouts and conv routes in turns: the four, then the four reversed.
+LAYOUT_ROUTES = (("ncdhw", "xla"), ("cl", "xla"), ("cl", "igemm"), ("ncdhw", "igemm"))
 
 
-def check_igemm_decode(card, decoder, z, temb):
-    """The dense 97-frame decode of a request's latents with every eligible
-    conv on K8 (``CVT_CONV3D_IMPL=igemm``: exactly 44 launches, conv_out
-    stays on cuDNN) against the default cuDNN decode: the time and peak of
-    each, in turns (cuDNN, K8, K8, cuDNN), the video's PSNR against cuDNN's,
-    and the channels-last copies the decoder's own ops force before a K8
-    conv, with their time estimated from one such copy timed at the tail's
-    size."""
+def layout_route_turns(run, want_k8: int, what: str):
+    """``run(channels_last)`` -> (output, seconds, peak bytes) in each
+    layout and conv route (``CVT_CONV3D_IMPL``), in turns.  Each run's K8
+    launches must be ``want_k8`` on the igemm route and 0 on cuDNN, and the
+    channels-last runs may copy no K8 input to channels last.  -> ({name:
+    [rows]}, {name: the first run's output on the host})."""
     from candle_video_tpu_torch.ops.kernels import _build
     from candle_video_tpu_torch.ops.kernels import conv3d_igemm as K8
 
-    runs = {"cudnn": [], "igemm": []}
-    videos = {}
-    for impl in ("xla", "igemm", "igemm", "xla"):
-        name = "cudnn" if impl == "xla" else "igemm"
+    runs, outs = {}, {}
+    for layout, impl in LAYOUT_ROUTES + LAYOUT_ROUTES[::-1]:
+        name = f"{layout}-{'cudnn' if impl == 'xla' else 'igemm'}"
         _build.reset_launches()
         K8.RELAYOUT.clear()
         with conv_impl(impl):
-            video, sec, peak = decode_peak(decoder, z, temb)
+            out, sec, peak = run(layout == "cl")
         launches, relayout = dict(_build.LAUNCHES), dict(K8.RELAYOUT)
-        want = 44 if name == "igemm" else 0
+        want = want_k8 if impl == "igemm" else 0
         if launches.get("conv3d_igemm", 0) != want:
-            raise AssertionError(f"{name} decode: launch counts {launches}, want {want} K8")
-        runs[name].append(dict(seconds=sec, peak_gib=peak / 2**30, launches=launches,
-                               relayout_copies=relayout.get("copies", 0),
-                               relayout_gib=relayout.get("bytes", 0) / 2**30))
-        videos[name] = video.cpu()
-        del video
-    db = psnr(videos["igemm"], videos["cudnn"])
+            raise AssertionError(f"{name} {what}: launch counts {launches}, want {want} K8")
+        if layout == "cl" and relayout.get("copies", 0):
+            raise AssertionError(f"{name} {what}: {relayout} copies to channels last before K8")
+        runs.setdefault(name, []).append(dict(
+            seconds=sec, peak_gib=peak / 2**30, launches=launches,
+            relayout_copies=relayout.get("copies", 0),
+            relayout_gib=relayout.get("bytes", 0) / 2**30))
+        outs.setdefault(name, out.float().cpu())
+        del out
+    return runs, outs
+
+
+def turns_line(runs) -> str:
+    return "; ".join(f"{name} " + ", ".join(f"{r['seconds']:.4f}" for r in rows)
+                     + f" s peak {rows[0]['peak_gib']:.2f} GiB copies {rows[0]['relayout_copies']}"
+                     for name, rows in runs.items())
+
+
+# The decoder's four conv widths at their 97-frame shapes (the mid block,
+# then the up blocks' resnets): channels, frames, height, width.
+DECODER_CONV_SHAPES = ((1024, 13, 16, 24), (512, 25, 32, 48), (256, 49, 64, 96),
+                       (128, 97, 128, 192))
+
+
+def check_conv_layouts(card):
+    """cuDNN's bf16 3x3x3 conv at the decoder's widths on an NCDHW input
+    and on a ``channels_last_3d`` view with the ``[O, I, 3, 3, 3]`` weight
+    as it is (``causal_conv3d_cl``'s call, which must write
+    ``channels_last_3d``: else every channels-last conv would copy)."""
+    rows = []
+    for c, t, h, w in DECODER_CONV_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(c)
+        x = torch.randn(1, c, t + 2, h, w, generator=g, device="cuda").bfloat16()
+        wt = (torch.randn(c, c, 3, 3, 3, generator=g, device="cuda") * 0.02).bfloat16()
+        b = torch.zeros(c, device="cuda").bfloat16()
+        xcl = x.contiguous(memory_format=torch.channels_last_3d)
+        y = F.conv3d(xcl, wt, b, padding=(0, 1, 1))
+        if not y.is_contiguous(memory_format=torch.channels_last_3d):
+            raise AssertionError(f"cuDNN wrote {c} ch NDHWC as NCDHW: the walk would copy")
+        rows.append(dict(
+            shape=[c, t, h, w],
+            ncdhw_ms=cuda_ms(lambda: F.conv3d(x, wt, b, padding=(0, 1, 1))),
+            ndhwc_ms=cuda_ms(lambda: F.conv3d(xcl, wt, b, padding=(0, 1, 1)))))
+        r = rows[-1]
+        log(f"[conv layouts] cuDNN bf16 {c} ch {t}x{h}x{w}: NCDHW {r['ncdhw_ms']:.3f} ms, "
+            f"NDHWC {r['ndhwc_ms']:.3f} ms | {card}")
+        del x, xcl, y
+    RESULTS["conv_layouts"] = rows
+
+
+def check_igemm_decode(card, decoder, z, temb):
+    """The dense 97-frame decode of a request's latents in both layouts
+    (``channels_last``), each on cuDNN and with every eligible conv on K8
+    (``CVT_CONV3D_IMPL=igemm``: exactly 44 launches, conv_out stays on
+    cuDNN), in turns: the time and peak of each, each video's PSNR
+    against the NCDHW cuDNN decode's, and the channels-last copies before a
+    K8 conv (none in channels-last; the NCDHW walk's timed from one such
+    copy at the tail's size).  cuDNN's conv layouts first."""
+    check_conv_layouts(card)
+    runs, videos = layout_route_turns(lambda cl: decode_peak(decoder, z, temb, channels_last=cl),
+                                      44, "decode")
+    want = videos["ncdhw-cudnn"]
+    db = {name: psnr(v, want) for name, v in videos.items() if name != "ncdhw-cudnn"}
     x = torch.randn(1, 128, 97, 128, 192, device="cuda").bfloat16()
     copy_ms = cuda_ms(lambda: x.contiguous(memory_format=torch.channels_last_3d))
     copy_gbs = 2 * x.numel() / copy_ms / 1e6
-    relayout_gib = runs["igemm"][0]["relayout_gib"]
+    relayout_gib = runs["ncdhw-igemm"][0]["relayout_gib"]
     row = dict(shape=list(z.shape), runs=runs, psnr_db=db,
-               max_abs=(videos["igemm"] - videos["cudnn"]).abs().max().item(),
+               max_abs={name: (v - want).abs().max().item() for name, v in videos.items()},
                relayout_copy_gb_s=copy_gbs,
                relayout_est_ms=relayout_gib * 2**30 / copy_gbs / 1e6)
-    log(f"[decode-k8] dense 97f decode of the e2e latents {tuple(z.shape)}: cuDNN "
-        + ", ".join(f"{r['seconds']:.4f} s" for r in runs["cudnn"])
-        + f" peak {runs['cudnn'][0]['peak_gib']:.2f} GiB; K8 "
-        + ", ".join(f"{r['seconds']:.4f} s" for r in runs["igemm"])
-        + f" peak {runs['igemm'][0]['peak_gib']:.2f} GiB, "
-        f"{runs['igemm'][0]['launches']}; video PSNR vs cuDNN {db:.2f} dB "
-        f"max_abs {row['max_abs']:.3f}; channels-last copies before K8: "
-        f"{runs['igemm'][0]['relayout_copies']} ({relayout_gib:.2f} GiB, about "
-        f"{row['relayout_est_ms']:.1f} ms at the measured {copy_gbs:.0f} GB/s) | {card}")
-    if not (db >= IGEMM_DECODE_PSNR_DB and torch.isfinite(videos["igemm"]).all()):
-        raise AssertionError(f"the K8 decode disagrees with the cuDNN decode: {row}")
+    log(f"[decode-k8] dense 97f decode of the e2e latents {tuple(z.shape)}, seconds in turns: "
+        f"{turns_line(runs)}; video PSNR vs NCDHW cuDNN "
+        + ", ".join(f"{k} {v:.2f} dB" for k, v in db.items())
+        + f"; the NCDHW walk's {runs['ncdhw-igemm'][0]['relayout_copies']} copies before K8 "
+        f"({relayout_gib:.2f} GiB, about {row['relayout_est_ms']:.1f} ms at the measured "
+        f"{copy_gbs:.0f} GB/s) | {card}")
+    if not (min(db.values()) >= IGEMM_DECODE_PSNR_DB
+            and all(torch.isfinite(v).all() for v in videos.values())):
+        raise AssertionError(f"a decode disagrees with the NCDHW cuDNN decode: {db}")
     RESULTS["decode_k8"] = row
-    return runs["igemm"][-1]["launches"]
+    return runs["cl-igemm"][-1]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2108,7 +2164,7 @@ def check_i2v_slice(card):
                                 tiled_encode_rel=enc_rel, tiled_decode_psnr=dec_db)
 
 
-def encode_peak(encoder, x):
+def encode_peak(encoder, x, channels_last=None):
     """A dense encode -> (moments, seconds, peak bytes above what was
     allocated before it)."""
     from candle_video_tpu_torch.models.ltx_video import vae as V
@@ -2117,7 +2173,7 @@ def encode_peak(encoder, x):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    moments = V.encode(encoder, x, use_tiling=False)
+    moments = V.encode(encoder, x, use_tiling=False, channels_last=channels_last)
     torch.cuda.synchronize()
     return moments, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
 
@@ -2130,56 +2186,36 @@ def range_psnr(got, want) -> float:
     return float("inf") if mse == 0 else 10 * math.log10(span ** 2 / mse)
 
 
-# The 97-frame encode on K8 against the cuDNN encode of the same video: the
-# igemm decode's gate.  Prediction before the first run: 45-60 dB.
+# Each layout and conv route's 97-frame encode against the NCDHW cuDNN encode
+# of the same video: the igemm decode's gate.  Prediction before the first
+# run: 45-60 dB.
 IGEMM_ENCODE_PSNR_DB = 40.0
 
 
 def check_igemm_encode(card, encoder):
     """The dense 97-frame encode of a random 1x3x97x512x768 bf16 video in
-    [-1, 1], cuDNN, then every eligible conv on K8 (exactly 41 launches;
-    conv_in 48 -> 128, the first downsampler's 128 -> 64 and conv_out 2048 ->
-    129 stay on cuDNN), in turns (cuDNN, K8, K8, cuDNN): times, peaks, the
-    channels-last copies before K8, and the moments' PSNR against cuDNN's."""
-    from candle_video_tpu_torch.ops.kernels import _build
-    from candle_video_tpu_torch.ops.kernels import conv3d_igemm as K8
-
+    [-1, 1] in both layouts, each on cuDNN and with every eligible conv on
+    K8 (exactly 41 launches; conv_in 48 -> 128, the first downsampler's 128
+    -> 64 and conv_out 2048 -> 129 stay on cuDNN), in turns: times, peaks,
+    the channels-last copies before K8 (none in channels-last), and each
+    set of moments' PSNR against the NCDHW cuDNN encode's."""
     g = torch.Generator(device="cuda").manual_seed(11)
     x = (torch.rand(1, 3, 97, 512, 768, generator=g, device="cuda") * 2 - 1).bfloat16()
-    runs = {"cudnn": [], "igemm": []}
-    moments = {}
-    for impl in ("xla", "igemm", "igemm", "xla"):
-        name = "cudnn" if impl == "xla" else "igemm"
-        _build.reset_launches()
-        K8.RELAYOUT.clear()
-        with conv_impl(impl):
-            m, sec, peak = encode_peak(encoder, x)
-        launches, relayout = dict(_build.LAUNCHES), dict(K8.RELAYOUT)
-        want = 41 if name == "igemm" else 0
-        if launches.get("conv3d_igemm", 0) != want:
-            raise AssertionError(f"{name} encode: launch counts {launches}, want {want} K8")
-        runs[name].append(dict(seconds=sec, peak_gib=peak / 2**30, launches=launches,
-                               relayout_copies=relayout.get("copies", 0),
-                               relayout_gib=relayout.get("bytes", 0) / 2**30))
-        moments[name] = m.float().cpu()
-        del m
-    if tuple(moments["igemm"].shape) != (1, 256, 13, 16, 24):
-        raise AssertionError(f"encode moments {tuple(moments['igemm'].shape)}")
-    db = range_psnr(moments["igemm"], moments["cudnn"])
-    rel = ((moments["igemm"] - moments["cudnn"]).norm() / moments["cudnn"].norm()).item()
+    runs, moments = layout_route_turns(lambda cl: encode_peak(encoder, x, cl), 41, "encode")
+    want = moments["ncdhw-cudnn"]
+    if tuple(want.shape) != (1, 256, 13, 16, 24):
+        raise AssertionError(f"encode moments {tuple(want.shape)}")
+    db = {name: range_psnr(m, want) for name, m in moments.items() if name != "ncdhw-cudnn"}
+    rel = {name: ((m - want).norm() / want.norm()).item() for name, m in moments.items()}
     row = dict(runs=runs, psnr_db=db, rel=rel)
-    log(f"[encode-k8] dense 97f encode of 1x3x97x512x768 bf16: cuDNN "
-        + ", ".join(f"{r['seconds']:.4f} s" for r in runs["cudnn"])
-        + f" peak {runs['cudnn'][0]['peak_gib']:.2f} GiB; K8 "
-        + ", ".join(f"{r['seconds']:.4f} s" for r in runs["igemm"])
-        + f" peak {runs['igemm'][0]['peak_gib']:.2f} GiB, {runs['igemm'][0]['launches']}; "
-        f"moments PSNR vs cuDNN {db:.2f} dB (rel {rel:.3e}); channels-last copies before "
-        f"K8: {runs['igemm'][0]['relayout_copies']} ({runs['igemm'][0]['relayout_gib']:.2f} "
-        f"GiB) | {card}")
-    if not (db >= IGEMM_ENCODE_PSNR_DB and torch.isfinite(moments["igemm"]).all()):
-        raise AssertionError(f"the K8 encode disagrees with the cuDNN encode: {row}")
+    log(f"[encode-k8] dense 97f encode of 1x3x97x512x768 bf16, seconds in turns: "
+        f"{turns_line(runs)}; moments PSNR vs NCDHW cuDNN "
+        + ", ".join(f"{k} {v:.2f} dB (rel {rel[k]:.3e})" for k, v in db.items()) + f" | {card}")
+    if not (min(db.values()) >= IGEMM_ENCODE_PSNR_DB
+            and all(torch.isfinite(m).all() for m in moments.values())):
+        raise AssertionError(f"an encode disagrees with the NCDHW cuDNN encode: {row}")
     RESULTS["encode_k8"] = row
-    return runs["igemm"][-1]["launches"]
+    return runs["cl-igemm"][-1]["launches"]
 
 
 def check_tiled_decode(card, decoder, z, temb):
@@ -4232,6 +4268,16 @@ def run_gguf_t5(card):
     return dev_row["launches"]
 
 
+def phase(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds kept under ``name`` in
+    ``RESULTS["phase_s"]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        RESULTS.setdefault("phase_s", {})[name] = time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--guided-drift"]):
@@ -4263,36 +4309,36 @@ def main(argv=None) -> int:
                 check_small_slice(card, quant=quant, guided=True, prompt=prompt)
         return 0
 
-    k1 = check_k1(card)
-    k2 = check_k2(card)
-    k3, k4 = check_k3_k4(card)
-    k5 = check_k5(card)
-    k7 = check_k7(card)
-    k8 = check_k8(card)
-    r1 = check_r1(card)
-    check_small_slice(card)
-    check_small_slice(card, quant="w4")
-    check_small_slice(card, quant="w8a8")
-    check_small_slice(card, guided=True)
-    check_small_slice(card, quant="w4", guided=True)
-    check_i2v_slice(card)
-    launches, launches_k8, launches_inject = run_e2e(card)
-    launches_stochastic = run_stochastic(card)
-    launches_i2v, launches_k8_encode = run_i2v(card)
-    launches_w8a8 = run_w8a8(card)
-    launches_sp = run_sp(card)
-    launches_long = run_long(card)
-    launches_serving = run_serving(card)
-    launches_13b, launches_dev_w4 = run_13b_w4(card)
-    launches_dev_w8 = run_13b_w8(card)
-    launches_pp, launches_tp = run_parallel(card)
-    run_checkpoint(card)
-    launches_gguf = run_gguf_t5(card)
-    run_cli(card)
-    k6 = check_k6(card)
-    check_svd_slice(card)
-    launches_svd = run_svd(card)
-
+    k1 = phase("check_k1", check_k1, card)
+    k2 = phase("check_k2", check_k2, card)
+    k3, k4 = phase("check_k3_k4", check_k3_k4, card)
+    k5 = phase("check_k5", check_k5, card)
+    k7 = phase("check_k7", check_k7, card)
+    k8 = phase("check_k8", check_k8, card)
+    r1 = phase("check_r1", check_r1, card)
+    phase("small_slice", check_small_slice, card)
+    phase("small_slice w4", check_small_slice, card, quant="w4")
+    phase("small_slice w8a8", check_small_slice, card, quant="w8a8")
+    phase("small_slice guided", check_small_slice, card, guided=True)
+    phase("small_slice w4 guided", check_small_slice, card, quant="w4",
+          guided=True)
+    phase("check_i2v_slice", check_i2v_slice, card)
+    launches, launches_k8, launches_inject = phase("run_e2e", run_e2e, card)
+    launches_stochastic = phase("run_stochastic", run_stochastic, card)
+    launches_i2v, launches_k8_encode = phase("run_i2v", run_i2v, card)
+    launches_w8a8 = phase("run_w8a8", run_w8a8, card)
+    launches_sp = phase("run_sp", run_sp, card)
+    launches_long = phase("run_long", run_long, card)
+    launches_serving = phase("run_serving", run_serving, card)
+    launches_13b, launches_dev_w4 = phase("run_13b_w4", run_13b_w4, card)
+    launches_dev_w8 = phase("run_13b_w8", run_13b_w8, card)
+    launches_pp, launches_tp = phase("run_parallel", run_parallel, card)
+    phase("run_checkpoint", run_checkpoint, card)
+    launches_gguf = phase("run_gguf_t5", run_gguf_t5, card)
+    phase("run_cli", run_cli, card)
+    k6 = phase("check_k6", check_k6, card)
+    phase("check_svd_slice", check_svd_slice, card)
+    launches_svd = phase("run_svd", run_svd, card)
     def entry(name, source, replaces, launched, row):
         return dict(name=name, route="cuda", source=f"candle_video_tpu_torch/csrc/{source}",
                     replaces=f"candle_video_tpu/ops/pallas/{replaces}", launches=launched,
@@ -4359,6 +4405,7 @@ def main(argv=None) -> int:
                           "injected decode 2B 97f": launches_inject,
                           "svd 576x1024x14": launches_svd["threefry_normal"]}))
     RESULTS.update(card=card, kernels=kernels)
+    log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in RESULTS["phase_s"].items()))
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1)
     log(json.dumps({"kernels": kernels}))

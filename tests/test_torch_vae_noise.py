@@ -138,7 +138,7 @@ def test_tail_stream_injects_as_dense_and_jax(injecting, n):
     z, temb = _z(7)
     nk = R.prng_key(NOISE_SEED)
     dense = _port(dec, z, temb, noise_key=nk)
-    head = _port(PV.decoder_head_forward, dec, z, temb, noise_key=nk)
+    head = _port(PV.decoder_head_forward_cl, dec, z, temb, noise_key=nk)
     got = _port(PV.decoder_tail_streamed, dec, head, temb, n_chunks=n, noise_key=nk)
     np.testing.assert_allclose(got, dense, atol=ATOL_DENSE, rtol=0)
     want = JV.decoder_forward(jdec, jcfg, jnp.asarray(z), jnp.asarray(temb),
@@ -152,7 +152,7 @@ def test_ups_tail_stream_injects_as_dense_and_jax(injecting, n):
     z, temb = _z(7, seed=2)
     nk = R.prng_key(NOISE_SEED)
     dense = _port(dec, z, temb, noise_key=nk)
-    head = _port(PV.decoder_head_pre_ups_forward, dec, z, temb, noise_key=nk)
+    head = _port(PV.decoder_head_pre_ups_forward_cl, dec, z, temb, noise_key=nk)
     got = _port(PV.decoder_ups_tail_streamed, dec, head, temb, n_chunks=n, noise_key=nk)
     np.testing.assert_allclose(got, dense, atol=ATOL_DENSE, rtol=0)
     want = JV.decoder_forward(jdec, jcfg, jnp.asarray(z), jnp.asarray(temb),
