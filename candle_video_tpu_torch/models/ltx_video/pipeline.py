@@ -140,6 +140,8 @@ def denoise_loop(transformer, latents, encoder_hidden_states, encoder_attention_
     ``split`` of the i-th key of the chain that starts at ``noise_key``
     (``utils.rng.prng_key``), as the JAX ``denoise_loop`` does.
     ``step_seconds``, when a list, receives each step's synchronised time.
+    Each step is a ``denoise_step`` span (``utils.debug``) that closes
+    before that sync: its length is the host's time to launch the step.
     ``interrupted``, a callable, is asked before each step; when it answers
     true the loop stops and returns the latents of the steps so far (the
     JAX ``denoise_stepwise``'s cooperative interrupt)."""
@@ -150,21 +152,22 @@ def denoise_loop(transformer, latents, encoder_hidden_states, encoder_attention_
     for i in range(n):
         if interrupted is not None and interrupted():
             break
-        t0 = time.perf_counter()
-        t, sigma, sigma_next = (float(schedule.timesteps[i]), float(schedule.sigmas[i]),
-                                float(schedule.sigmas[i + 1]))
-        lat_in = lat.repeat(num_conds, 1, 1)
-        timestep = torch.full((num_conds * b,), t, dtype=torch.float32, device=lat.device)
-        pred = transformer(lat_in, encoder_hidden_states, timestep, rope_cos, rope_sin,
-                           encoder_attention_mask=encoder_attention_mask,
-                           skip_layer_mask=skip_layer_mask).float()
-        combined = guidance_combine(pred, b, num_conds, guidance_scale,
-                                    guidance_rescale, stg_scale)
-        noise = None
-        if stochastic:
-            key, sub = R.split(key)
-            noise = R.normal_on(sub, lat.shape, device=lat.device)
-        lat = S.step(lat, combined, sigma, sigma_next, stochastic=stochastic, noise=noise)
+        t0 = time.perf_counter() if step_seconds is not None else None
+        with debug.span("denoise_step", step=i):
+            t, sigma, sigma_next = (float(schedule.timesteps[i]), float(schedule.sigmas[i]),
+                                    float(schedule.sigmas[i + 1]))
+            lat_in = lat.repeat(num_conds, 1, 1)
+            timestep = torch.full((num_conds * b,), t, dtype=torch.float32, device=lat.device)
+            pred = transformer(lat_in, encoder_hidden_states, timestep, rope_cos, rope_sin,
+                               encoder_attention_mask=encoder_attention_mask,
+                               skip_layer_mask=skip_layer_mask).float()
+            combined = guidance_combine(pred, b, num_conds, guidance_scale,
+                                        guidance_rescale, stg_scale)
+            noise = None
+            if stochastic:
+                key, sub = R.split(key)
+                noise = R.normal_on(sub, lat.shape, device=lat.device)
+            lat = S.step(lat, combined, sigma, sigma_next, stochastic=stochastic, noise=noise)
         if step_seconds is not None:
             _sync(lat.device)
             step_seconds.append(time.perf_counter() - t0)
@@ -197,18 +200,21 @@ def denoise_loop_i2v(transformer, latents, cond_mask, encoder_hidden_states,
     for i in range(n):
         if interrupted is not None and interrupted():
             break
-        t0 = time.perf_counter()
-        t = torch.tensor(float(schedule.timesteps[i]), dtype=torch.float32, device=lat.device)
-        tok_t = t * inv_mask
-        pred = transformer(lat.repeat(num_conds, 1, 1), encoder_hidden_states,
-                           tok_t.repeat(num_conds, 1), rope_cos, rope_sin,
-                           encoder_attention_mask=encoder_attention_mask,
-                           skip_layer_mask=skip_layer_mask).float()
-        combined = guidance_combine(pred, b, num_conds, guidance_scale,
-                                    guidance_rescale, stg_scale)
-        denoised = S.step_per_token(lat, combined, schedule.sigmas, tok_t, num_train_timesteps)
-        moving = ((t / num_train_timesteps - 1e-6) < inv_mask)[..., None]
-        lat = torch.where(moving, denoised, lat)
+        t0 = time.perf_counter() if step_seconds is not None else None
+        with debug.span("denoise_step", step=i):
+            t = torch.tensor(float(schedule.timesteps[i]), dtype=torch.float32,
+                             device=lat.device)
+            tok_t = t * inv_mask
+            pred = transformer(lat.repeat(num_conds, 1, 1), encoder_hidden_states,
+                               tok_t.repeat(num_conds, 1), rope_cos, rope_sin,
+                               encoder_attention_mask=encoder_attention_mask,
+                               skip_layer_mask=skip_layer_mask).float()
+            combined = guidance_combine(pred, b, num_conds, guidance_scale,
+                                        guidance_rescale, stg_scale)
+            denoised = S.step_per_token(lat, combined, schedule.sigmas, tok_t,
+                                        num_train_timesteps)
+            moving = ((t / num_train_timesteps - 1e-6) < inv_mask)[..., None]
+            lat = torch.where(moving, denoised, lat)
         if step_seconds is not None:
             _sync(lat.device)
             step_seconds.append(time.perf_counter() - t0)
@@ -490,7 +496,7 @@ def generate(
             raise ValueError(f"sp_mesh is on {sp_mesh.device}, the pipeline on {device}")
     timing = stage_times is not None
     timer = debug.StageTimer(enabled=timing)
-    t_start = time.perf_counter()
+    t_start = time.perf_counter() if timing else None
 
     if isinstance(prompt, str):
         prompt = [prompt]
@@ -520,177 +526,180 @@ def generate(
     batch = len(prompt) if prompt is not None else int(prompt_embeds.shape[0])
     eff_batch = batch * num_videos_per_prompt
 
-    # ---- prompt embeddings ------------------------------------------------
-    with timer.stage("t5_encode"):
-        if prompt_embeds is None:
-            p_emb, p_mask = pipe.encode_prompt(prompt, max_sequence_length)
-        else:
-            p_emb = _as_tensor(prompt_embeds, device)
-            p_mask = _as_tensor(prompt_attention_mask, device, torch.float32)
-        n_emb = n_mask = None
-        if do_cfg:
-            if negative_prompt_embeds is None:
-                neg = negative_prompt if negative_prompt is not None else [""] * batch
-                if len(neg) == 1 and batch > 1:
-                    neg = neg * batch
-                n_emb, n_mask = pipe.encode_prompt(neg, max_sequence_length)
+    with debug.span("generate", rows=eff_batch, frames=num_frames):
+        # ---- prompt embeddings --------------------------------------------
+        with timer.stage("t5_encode"):
+            if prompt_embeds is None:
+                p_emb, p_mask = pipe.encode_prompt(prompt, max_sequence_length)
             else:
-                n_emb = _as_tensor(negative_prompt_embeds, device)
-                n_mask = _as_tensor(negative_prompt_attention_mask, device, torch.float32)
-        if num_videos_per_prompt > 1:
-            p_emb = p_emb.repeat_interleave(num_videos_per_prompt, 0)
-            p_mask = p_mask.repeat_interleave(num_videos_per_prompt, 0)
+                p_emb = _as_tensor(prompt_embeds, device)
+                p_mask = _as_tensor(prompt_attention_mask, device, torch.float32)
+            n_emb = n_mask = None
             if do_cfg:
-                n_emb = n_emb.repeat_interleave(num_videos_per_prompt, 0)
-                n_mask = n_mask.repeat_interleave(num_videos_per_prompt, 0)
-        rows = ([(n_emb, n_mask)] if do_cfg else []) + [(p_emb, p_mask)] + \
-            ([(p_emb, p_mask)] if do_stg else [])
-        enc_states = torch.cat([r[0] for r in rows])
-        enc_mask = torch.cat([r[1] for r in rows])
+                if negative_prompt_embeds is None:
+                    neg = negative_prompt if negative_prompt is not None else [""] * batch
+                    if len(neg) == 1 and batch > 1:
+                        neg = neg * batch
+                    n_emb, n_mask = pipe.encode_prompt(neg, max_sequence_length)
+                else:
+                    n_emb = _as_tensor(negative_prompt_embeds, device)
+                    n_mask = _as_tensor(negative_prompt_attention_mask, device, torch.float32)
+            if num_videos_per_prompt > 1:
+                p_emb = p_emb.repeat_interleave(num_videos_per_prompt, 0)
+                p_mask = p_mask.repeat_interleave(num_videos_per_prompt, 0)
+                if do_cfg:
+                    n_emb = n_emb.repeat_interleave(num_videos_per_prompt, 0)
+                    n_mask = n_mask.repeat_interleave(num_videos_per_prompt, 0)
+            rows = ([(n_emb, n_mask)] if do_cfg else []) + [(p_emb, p_mask)] + \
+                ([(p_emb, p_mask)] if do_stg else [])
+            enc_states = torch.cat([r[0] for r in rows])
+            enc_mask = torch.cat([r[1] for r in rows])
 
-    # ---- latents ------------------------------------------------------------
-    tr, sr = vcfg.temporal_compression_ratio, vcfg.spatial_compression_ratio
-    if (num_frames - 1) % tr != 0:
-        warnings.warn(f"num_frames should be {tr}*n+1; {num_frames} will produce "
-                      f"{(num_frames - 1) // tr * tr + 1} frames", stacklevel=2)
-    lf, lh, lw = (num_frames - 1) // tr + 1, height // sr, width // sr
-    if conditioning is not None and (image is not None or image_latents is not None):
-        raise ValueError("pass either `conditioning` or `image`/`image_latents`")
-    if image is not None or image_latents is not None:
-        conditioning = [ConditioningItem(image=image, latents=image_latents)]
-    i2v = bool(conditioning)
-    if i2v and pp_mesh is not None:
-        raise ValueError("image conditioning is not supported in PP mode")
-    if i2v:
-        cond5 = _conditioning_mask(pipe, conditioning, (eff_batch, 1, lf, lh, lw))
-        cond_mask = pack_latents(cond5, tcfg.patch_size, tcfg.patch_size_t)[..., 0]
-    if latents is None and i2v:
-        with timer.stage("anchor_encode"):
-            shape = (eff_batch, tcfg.in_channels, lf, lh, lw)
-            noise5 = _initial_noise(seed, shape, use_pcg_rng, device)
-            init5 = torch.zeros(shape, dtype=torch.float32, device=device)
-            for idx, item in enumerate(conditioning):
-                init5[:, :, item.frame_index:item.frame_index + 1] = _anchor_latents(
-                    pipe, item, idx, seed, eff_batch, num_videos_per_prompt,
-                    conditioning_sample_mode, use_vae_tiling)
-            lat5 = init5 * cond5 + noise5 * (1.0 - cond5)
-            latents = pack_latents(lat5, tcfg.patch_size, tcfg.patch_size_t)
-    elif latents is None:
-        shape = (eff_batch, tcfg.in_channels, lf, lh, lw)
-        lat5 = _initial_noise(seed, shape, use_pcg_rng, device)
-        latents = pack_latents(lat5, tcfg.patch_size, tcfg.patch_size_t)
-    else:
-        latents = _as_tensor(latents, device, torch.float32)
-        if latents.ndim == 5:
-            latents = pack_latents(latents, tcfg.patch_size, tcfg.patch_size_t)
-    debug.dump_tensor("initial_latents", latents)
-
-    # ---- decode mode: the one asked for, else (vae_auto_decode) resolved
-    # once, from the free memory before the denoise --------------------------------
-    decode_kw = dict(tail_stream_chunks=vae_tail_stream_chunks,
-                     tail_stream_from_ups=vae_tail_stream_from_ups,
-                     full_stream_chunks=vae_full_stream_chunks)
-    if (vae_auto_decode and output_type == "tensor" and pipe.vae is not None
-            and not vae_tail_stream_chunks and not vae_full_stream_chunks):
-        decode_kw = V.select_decode_mode(vcfg, (eff_batch, vcfg.latent_channels, lf, lh, lw),
-                                         device=device)
-
-    # ---- schedule -------------------------------------------------------------
-    has_custom = sigmas is not None or timesteps is not None
-    if not has_custom:
-        sigmas = np.linspace(1.0, 1.0 / num_inference_steps,
-                             num_inference_steps).astype(np.float32).tolist()
-    mu = 0.0 if has_custom else S.calculate_shift(
-        lf * lh * lw,
-        cfg.scheduler.base_image_seq_len or 256,
-        cfg.scheduler.max_image_seq_len or 4096,
-        cfg.scheduler.base_shift or 0.5,
-        cfg.scheduler.max_shift or 1.15,
-    )
-    schedule = S.set_timesteps(cfg.scheduler, num_inference_steps=num_inference_steps,
-                               sigmas=sigmas, timesteps=timesteps, mu=mu)
-
-    # ---- RoPE tables (once per video shape) -----------------------------------
-    coords = build_video_coords(lf, lh, lw, frame_rate, tr, sr)
-    base = np.asarray([tcfg.rope_base_num_frames, tcfg.rope_base_height,
-                       tcfg.rope_base_width], np.float32)
-    grid = torch.from_numpy(coords / base).to(device)[None]
-    rope_cos, rope_sin = rope_cos_sin(grid, tcfg.inner_dim, tcfg.rope_theta)
-
-    # ---- skip-layer mask (STG rows, or permanent skips without STG) -----------
-    skip = np.zeros((tcfg.num_layers, num_conds * eff_batch), np.float32)
-    for idx in skip_block_list or ():
-        if 0 <= idx < tcfg.num_layers:
-            skip[idx, (num_conds - 1) * eff_batch if do_stg else 0:] = 1.0
-    skip_mask = torch.from_numpy(skip).to(device) if skip.any() else None
-
-    # ---- denoise --------------------------------------------------------------
-    step_seconds = [] if timing else None
-    guidance = dict(num_conds=num_conds, guidance_scale=guidance_scale,
-                    guidance_rescale=guidance_rescale if do_cfg else 0.0, stg_scale=stg_scale,
-                    skip_layer_mask=skip_mask, step_seconds=step_seconds)
-    if i2v:
-        if sp_mesh is not None:
-            raise ValueError("image conditioning is not supported in SP mode (per-token "
-                             "timesteps are not wired through the ring loop)")
-        if stochastic:
-            raise ValueError("stochastic sampling is not supported with image conditioning "
-                             "(per-token scheduler path)")
-        final = denoise_loop_i2v(pipe.transformer, latents, cond_mask, enc_states, enc_mask,
-                                 schedule, rope_cos, rope_sin,
-                                 num_train_timesteps=cfg.scheduler.num_train_timesteps,
-                                 step_callback=step_callback,
-                                 interrupted=lambda: pipe.interrupt, **guidance)
-    elif sp_mesh is not None:
-        final = denoise_loop_sp(pipe.transformer, latents, enc_states, enc_mask, schedule,
-                                rope_cos, rope_sin, mesh=sp_mesh, **guidance)
-    elif pp_mesh is not None:
-        if step_callback is not None:
-            raise ValueError("step_callback is not supported in PP mode")
-        final = denoise_loop_pp(pipe.transformer, latents, enc_states, enc_mask, schedule,
-                                rope_cos, rope_sin, mesh=pp_mesh,
-                                num_microbatches=pp_microbatches, interleave=pp_interleave,
-                                stochastic=stochastic, noise_key=R.prng_key(seed + 1),
-                                **guidance)
-    else:
-        final = denoise_loop(pipe.transformer, latents, enc_states, enc_mask, schedule,
-                             rope_cos, rope_sin, stochastic=stochastic,
-                             noise_key=R.prng_key(seed + 1), step_callback=step_callback,
-                             interrupted=lambda: pipe.interrupt, **guidance)
-    if timing:
-        stage_times["denoise_steps"] = step_seconds
-    debug.dump_tensor("final_latents", final)
-    if output_type == "latent":
-        if timing:
-            stage_times.update(timer.stages, total=time.perf_counter() - t_start)
-        return final
-
-    # ---- decode -----------------------------------------------------------------
-    if pipe.vae is None:
-        raise ValueError("pipeline has no VAE; use output_type='latent'")
-    with timer.stage("vae_decode"):
-        temb = noise = scale = None
-        if vcfg.timestep_conditioning:
-            dt = list(decode_timestep or [0.0])
-            dt = dt * eff_batch if len(dt) == 1 else dt
-            dns = list(decode_noise_scale or dt)
-            dns = dns * eff_batch if len(dns) == 1 else dns
-            temb = torch.tensor(dt, dtype=torch.float32, device=device)
-            scale = torch.tensor(dns, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1, 1)
-            shape = (eff_batch, vcfg.latent_channels, lf, lh, lw)
-            if decode_noise is not None:
-                noise = _as_tensor(decode_noise, device, torch.float32)
+        with debug.span("prepare"):
+            # ---- latents ----------------------------------------------------
+            tr, sr = vcfg.temporal_compression_ratio, vcfg.spatial_compression_ratio
+            if (num_frames - 1) % tr != 0:
+                warnings.warn(f"num_frames should be {tr}*n+1; {num_frames} will produce "
+                              f"{(num_frames - 1) // tr * tr + 1} frames", stacklevel=2)
+            lf, lh, lw = (num_frames - 1) // tr + 1, height // sr, width // sr
+            if conditioning is not None and (image is not None or image_latents is not None):
+                raise ValueError("pass either `conditioning` or `image`/`image_latents`")
+            if image is not None or image_latents is not None:
+                conditioning = [ConditioningItem(image=image, latents=image_latents)]
+            i2v = bool(conditioning)
+            if i2v and pp_mesh is not None:
+                raise ValueError("image conditioning is not supported in PP mode")
+            if i2v:
+                cond5 = _conditioning_mask(pipe, conditioning, (eff_batch, 1, lf, lh, lw))
+                cond_mask = pack_latents(cond5, tcfg.patch_size, tcfg.patch_size_t)[..., 0]
+            if latents is None and i2v:
+                with timer.stage("anchor_encode"):
+                    shape = (eff_batch, tcfg.in_channels, lf, lh, lw)
+                    noise5 = _initial_noise(seed, shape, use_pcg_rng, device)
+                    init5 = torch.zeros(shape, dtype=torch.float32, device=device)
+                    for idx, item in enumerate(conditioning):
+                        init5[:, :, item.frame_index:item.frame_index + 1] = _anchor_latents(
+                            pipe, item, idx, seed, eff_batch, num_videos_per_prompt,
+                            conditioning_sample_mode, use_vae_tiling)
+                    lat5 = init5 * cond5 + noise5 * (1.0 - cond5)
+                    latents = pack_latents(lat5, tcfg.patch_size, tcfg.patch_size_t)
+            elif latents is None:
+                shape = (eff_batch, tcfg.in_channels, lf, lh, lw)
+                lat5 = _initial_noise(seed, shape, use_pcg_rng, device)
+                latents = pack_latents(lat5, tcfg.patch_size, tcfg.patch_size_t)
             else:
-                noise = R.normal_on(R.prng_key(seed + 2), shape, device=device)
-        lat5 = prepare_decode(final, pipe.vae.latents_mean, pipe.vae.latents_std, noise,
-                              scale, num_frames=lf, height=lh, width=lw,
-                              patch_size=tcfg.patch_size, patch_size_t=tcfg.patch_size_t,
-                              scaling_factor=vcfg.scaling_factor)
-        video = V.decode(pipe.vae, lat5, temb, tiling=vae_tiling, use_tiling=use_vae_tiling,
-                         use_framewise_decoding=use_vae_tiling, use_slicing=use_vae_slicing,
-                         **decode_kw)
-        video = postprocess_video(video)
-    if timing:
-        stage_times.update(timer.stages, decode_mode=decode_kw,
-                           total=time.perf_counter() - t_start)
-    return video
+                latents = _as_tensor(latents, device, torch.float32)
+                if latents.ndim == 5:
+                    latents = pack_latents(latents, tcfg.patch_size, tcfg.patch_size_t)
+            debug.dump_tensor("initial_latents", latents)
+
+            # ---- decode mode: the one asked for, else (vae_auto_decode) resolved
+            # once, from the free memory before the denoise --------------------------------
+            decode_kw = dict(tail_stream_chunks=vae_tail_stream_chunks,
+                             tail_stream_from_ups=vae_tail_stream_from_ups,
+                             full_stream_chunks=vae_full_stream_chunks)
+            if (vae_auto_decode and output_type == "tensor" and pipe.vae is not None
+                    and not vae_tail_stream_chunks and not vae_full_stream_chunks):
+                decode_kw = V.select_decode_mode(
+                    vcfg, (eff_batch, vcfg.latent_channels, lf, lh, lw), device=device)
+
+            # ---- schedule -----------------------------------------------------
+            has_custom = sigmas is not None or timesteps is not None
+            if not has_custom:
+                sigmas = np.linspace(1.0, 1.0 / num_inference_steps,
+                                     num_inference_steps).astype(np.float32).tolist()
+            mu = 0.0 if has_custom else S.calculate_shift(
+                lf * lh * lw,
+                cfg.scheduler.base_image_seq_len or 256,
+                cfg.scheduler.max_image_seq_len or 4096,
+                cfg.scheduler.base_shift or 0.5,
+                cfg.scheduler.max_shift or 1.15,
+            )
+            schedule = S.set_timesteps(cfg.scheduler, num_inference_steps=num_inference_steps,
+                                       sigmas=sigmas, timesteps=timesteps, mu=mu)
+
+            # ---- RoPE tables (once per video shape) ---------------------------
+            coords = build_video_coords(lf, lh, lw, frame_rate, tr, sr)
+            base = np.asarray([tcfg.rope_base_num_frames, tcfg.rope_base_height,
+                               tcfg.rope_base_width], np.float32)
+            grid = torch.from_numpy(coords / base).to(device)[None]
+            rope_cos, rope_sin = rope_cos_sin(grid, tcfg.inner_dim, tcfg.rope_theta)
+
+            # ---- skip-layer mask (STG rows, or permanent skips without STG) ---
+            skip = np.zeros((tcfg.num_layers, num_conds * eff_batch), np.float32)
+            for idx in skip_block_list or ():
+                if 0 <= idx < tcfg.num_layers:
+                    skip[idx, (num_conds - 1) * eff_batch if do_stg else 0:] = 1.0
+            skip_mask = torch.from_numpy(skip).to(device) if skip.any() else None
+
+        # ---- denoise ----------------------------------------------------------
+        step_seconds = [] if timing else None
+        guidance = dict(num_conds=num_conds, guidance_scale=guidance_scale,
+                        guidance_rescale=guidance_rescale if do_cfg else 0.0, stg_scale=stg_scale,
+                        skip_layer_mask=skip_mask, step_seconds=step_seconds)
+        if i2v:
+            if sp_mesh is not None:
+                raise ValueError("image conditioning is not supported in SP mode (per-token "
+                                 "timesteps are not wired through the ring loop)")
+            if stochastic:
+                raise ValueError("stochastic sampling is not supported with image conditioning "
+                                 "(per-token scheduler path)")
+            final = denoise_loop_i2v(pipe.transformer, latents, cond_mask, enc_states, enc_mask,
+                                     schedule, rope_cos, rope_sin,
+                                     num_train_timesteps=cfg.scheduler.num_train_timesteps,
+                                     step_callback=step_callback,
+                                     interrupted=lambda: pipe.interrupt, **guidance)
+        elif sp_mesh is not None:
+            final = denoise_loop_sp(pipe.transformer, latents, enc_states, enc_mask, schedule,
+                                    rope_cos, rope_sin, mesh=sp_mesh, **guidance)
+        elif pp_mesh is not None:
+            if step_callback is not None:
+                raise ValueError("step_callback is not supported in PP mode")
+            final = denoise_loop_pp(pipe.transformer, latents, enc_states, enc_mask, schedule,
+                                    rope_cos, rope_sin, mesh=pp_mesh,
+                                    num_microbatches=pp_microbatches, interleave=pp_interleave,
+                                    stochastic=stochastic, noise_key=R.prng_key(seed + 1),
+                                    **guidance)
+        else:
+            final = denoise_loop(pipe.transformer, latents, enc_states, enc_mask, schedule,
+                                 rope_cos, rope_sin, stochastic=stochastic,
+                                 noise_key=R.prng_key(seed + 1), step_callback=step_callback,
+                                 interrupted=lambda: pipe.interrupt, **guidance)
+        if timing:
+            stage_times["denoise_steps"] = step_seconds
+        debug.dump_tensor("final_latents", final)
+        if output_type == "latent":
+            if timing:
+                stage_times.update(timer.stages, total=time.perf_counter() - t_start)
+            return final
+
+        # ---- decode -------------------------------------------------------------
+        if pipe.vae is None:
+            raise ValueError("pipeline has no VAE; use output_type='latent'")
+        with timer.stage("vae_decode", mode=decode_kw):
+            temb = noise = scale = None
+            if vcfg.timestep_conditioning:
+                dt = list(decode_timestep or [0.0])
+                dt = dt * eff_batch if len(dt) == 1 else dt
+                dns = list(decode_noise_scale or dt)
+                dns = dns * eff_batch if len(dns) == 1 else dns
+                temb = torch.tensor(dt, dtype=torch.float32, device=device)
+                scale = torch.tensor(dns, dtype=torch.float32,
+                                     device=device).reshape(-1, 1, 1, 1, 1)
+                shape = (eff_batch, vcfg.latent_channels, lf, lh, lw)
+                if decode_noise is not None:
+                    noise = _as_tensor(decode_noise, device, torch.float32)
+                else:
+                    noise = R.normal_on(R.prng_key(seed + 2), shape, device=device)
+            lat5 = prepare_decode(final, pipe.vae.latents_mean, pipe.vae.latents_std, noise,
+                                  scale, num_frames=lf, height=lh, width=lw,
+                                  patch_size=tcfg.patch_size, patch_size_t=tcfg.patch_size_t,
+                                  scaling_factor=vcfg.scaling_factor)
+            video = V.decode(pipe.vae, lat5, temb, tiling=vae_tiling, use_tiling=use_vae_tiling,
+                             use_framewise_decoding=use_vae_tiling, use_slicing=use_vae_slicing,
+                             **decode_kw)
+            video = postprocess_video(video)
+        if timing:
+            stage_times.update(timer.stages, decode_mode=decode_kw,
+                               total=time.perf_counter() - t_start)
+        return video

@@ -43,7 +43,19 @@ from ...ops.norms import layer_norm, rms_norm
 from ...ops.quant_linear import Int4Linear, Int8Linear, W8A8Linear
 from ...ops.ring import ring_self_attention
 from ...ops.rope import apply_rotary_emb
+from ...utils import debug
 from .configs import LtxTransformerConfig
+
+
+def _linear(lin, x):
+    """``lin(x)``; while spans are recorded a dense ``nn.Linear``'s product
+    is a ``matmul`` span (the quantized linears open theirs around their own
+    products).  The flag is tested here first: this runs 287 times a 2B
+    step, where the host has little time to spare."""
+    if debug.RECORDING and isinstance(lin, nn.Linear):
+        with debug.span("matmul"):
+            return lin(x)
+    return lin(x)
 
 
 class Attention(nn.Module):
@@ -88,8 +100,8 @@ class Attention(nn.Module):
         b, s, _ = hidden.shape
         enc = hidden if encoder_hidden is None else encoder_hidden
         kv = enc.shape[1]
-        q, k = self._qk_norm(self.to_q(hidden), self.to_k(enc))
-        v = self.to_v(enc)
+        q, k = self._qk_norm(_linear(self.to_q, hidden), _linear(self.to_k, enc))
+        v = _linear(self.to_v, enc)
         h, hd = self.heads, self.head_dim
         if ring is not None and encoder_hidden is None:
             if rope is not None:
@@ -100,7 +112,7 @@ class Attention(nn.Module):
             out = attention(q.reshape(b, s, h, hd), k.reshape(b, kv, h, hd),
                             v.reshape(b, kv, h, hd), 1.0 / math.sqrt(hd),
                             bias=bias, rope=rope)
-        return self.to_out(out.reshape(b, s, h * hd))
+        return _linear(self.to_out, out.reshape(b, s, h * hd))
 
 
 class FeedForward(nn.Module):
@@ -110,7 +122,7 @@ class FeedForward(nn.Module):
         self.net_2 = nn.Linear(4 * d, d, dtype=dtype)
 
     def forward(self, x):
-        return self.net_2(gelu_tanh(self.net_0_proj(x)))
+        return _linear(self.net_2, gelu_tanh(_linear(self.net_0_proj, x)))
 
 
 class TransformerBlock(nn.Module):
@@ -134,11 +146,17 @@ class TransformerBlock(nn.Module):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = ada.unbind(2)
 
         norm = rms_norm(hidden, eps=self.eps) * (1.0 + scale_msa) + shift_msa
-        hidden = hidden + self.attn1(norm, rope=rope, ring=ring) * gate_msa
+        with debug.span("attn1"):
+            attn = self.attn1(norm, rope=rope, ring=ring)
+        hidden = hidden + attn * gate_msa
         # cross-attention: no pre-norm, no RoPE, no gate
-        hidden = hidden + self.attn2(hidden, encoder_hidden, bias=enc_bias)
+        with debug.span("attn2"):
+            attn = self.attn2(hidden, encoder_hidden, bias=enc_bias)
+        hidden = hidden + attn
         norm = rms_norm(hidden, eps=self.eps) * (1.0 + scale_mlp) + shift_mlp
-        hidden = hidden + self.ff(norm) * gate_mlp
+        with debug.span("ff"):
+            ff = self.ff(norm)
+        hidden = hidden + ff * gate_mlp
         if skip_row is not None:
             m = skip_row.reshape(b, 1, 1).to(hidden.dtype)  # 1 = skip the block
             hidden = hidden * (1.0 - m) + orig * m
@@ -175,8 +193,8 @@ class LtxTransformer3D(nn.Module):
         """AdaLayerNormSingle: the sinusoid runs on the f32 timestep."""
         te = self.timestep_embedder
         proj = sinusoidal_timestep_embedding(timestep, 256).to(dtype)
-        emb = te.linear_2(silu(te.linear_1(proj)))
-        return self.time_linear(silu(emb)), emb
+        emb = _linear(te.linear_2, silu(_linear(te.linear_1, proj)))
+        return _linear(self.time_linear, silu(emb)), emb
 
     def local_rope(self, rope_cos, rope_sin):
         """The RoPE tables this rank's heads read: under tensor parallelism
@@ -197,9 +215,10 @@ class LtxTransformer3D(nn.Module):
         [B,1,1,K] f32 or None), all in the model dtype but the bias."""
         dtype = self.proj_in.weight.dtype
         b = hidden_states.shape[0]
-        x = self.proj_in(hidden_states.to(dtype))
+        x = _linear(self.proj_in, hidden_states.to(dtype))
         cp = self.caption_projection
-        enc = cp.linear_2(gelu_tanh(cp.linear_1(encoder_hidden_states.to(dtype))))
+        enc = _linear(cp.linear_2,
+                      gelu_tanh(_linear(cp.linear_1, encoder_hidden_states.to(dtype))))
         temb6, emb = self._timestep_embedding(timestep.reshape(-1).float(), dtype)
         temb6 = temb6.reshape(b, -1, temb6.shape[-1])
         emb = emb.reshape(b, -1, emb.shape[-1])
@@ -215,7 +234,7 @@ class LtxTransformer3D(nn.Module):
         ss = self.scale_shift_table.to(emb.dtype)[None, None] + emb[:, :, None, :]
         shift, scale = ss[:, :, 0], ss[:, :, 1]
         x = layer_norm(x, eps=1e-6) * (1.0 + scale) + shift
-        return self.proj_out(x)
+        return _linear(self.proj_out, x)
 
     def forward(self, hidden_states, encoder_hidden_states, timestep, rope_cos,
                 rope_sin, encoder_attention_mask=None, skip_layer_mask=None, ring=None):

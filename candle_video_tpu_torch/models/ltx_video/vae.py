@@ -83,6 +83,7 @@ from ...ops.activations import silu
 from ...ops.conv3d import causal_conv3d, causal_conv3d_cl
 from ...ops.embeddings import sinusoidal_timestep_embedding
 from ...ops.norms import rms_norm
+from ...utils import debug
 from ...utils import rng as R
 from .configs import LtxVaeConfig
 
@@ -181,6 +182,10 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x, temb, causal: bool, conv1=None, conv2=None, align=_same,
                 noise_key=None, cl: bool = False):
+        with debug.span("resnet"):
+            return self._forward(x, temb, causal, conv1, conv2, align, noise_key, cl)
+
+    def _forward(self, x, temb, causal, conv1, conv2, align, noise_key, cl):
         conv1 = conv1 or (lambda y: self.conv1(y, causal, cl=cl))
         conv2 = conv2 or (lambda y: self.conv2(y, causal, cl=cl))
         inject = self.per_channel_scale1 is not None and noise_key is not None
@@ -245,12 +250,13 @@ class Upsampler(nn.Module):
         st, sh, sw = stride
         crop = st - 1 if crop_start else 0
         conv = conv or (lambda y: self.conv(y, causal, cl=cl))
-        h = _crop_t(_depth_to_space(conv(x), st, sh, sw, cl), crop, cl)
-        if residual:
-            res = _depth_to_space(res_align(x), st, sh, sw, cl)
-            if channel_repeats > 1:
-                res = _tile_channels(res, channel_repeats, cl)
-            h = h + _crop_t(res, crop, cl)
+        with debug.span("upsampler"):
+            h = _crop_t(_depth_to_space(conv(x), st, sh, sw, cl), crop, cl)
+            if residual:
+                res = _depth_to_space(res_align(x), st, sh, sw, cl)
+                if channel_repeats > 1:
+                    res = _tile_channels(res, channel_repeats, cl)
+                h = h + _crop_t(res, crop, cl)
         return h
 
 

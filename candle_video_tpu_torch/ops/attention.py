@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import debug
 from .kernels.flash_attention import flash_attention
 from .kernels.flash_attention_packed import flash_attention_packed, packed_viable
 from .rope import apply_rotary_emb
@@ -53,7 +54,8 @@ def attention(q, k, v, scale: float, bias=None, rope=None):
     b, s, h, d = q.shape
     kv = k.shape[1]
     if rope is None and kv <= _SHORT_KV:
-        return attention_xla_bf16(q, k, v, scale, bias=bias)
+        with debug.span("attn.cross"):
+            return attention_xla_bf16(q, k, v, scale, bias=bias)
     if not packed_viable(s, kv, h, d):
         if rope is not None:
             q = apply_rotary_emb(q.reshape(b, s, h * d), rope[0], rope[1]).reshape(q.shape)

@@ -39,6 +39,7 @@ import os
 import torch
 import torch.nn.functional as F
 
+from ..utils import debug
 from .kernels import conv3d_igemm as K8
 
 IMPLS = ("xla", "igemm")
@@ -82,7 +83,8 @@ def causal_conv3d(x, weight, bias=None, causal: bool = True, time_pad: str = "ed
         return K8.conv3d_igemm(x, weight, bias, causal=causal, time_pad=time_pad)
     if time_pad != "valid":
         x = replicate_pad_time(x, kt, causal)
-    return F.conv3d(x, weight, bias, padding=(0, kh // 2, kw // 2))
+    with debug.span("conv"):
+        return F.conv3d(x, weight, bias, padding=(0, kh // 2, kw // 2))
 
 
 def causal_conv3d_cl(x, weight, bias=None, causal: bool = True, time_pad: str = "edge",
@@ -102,5 +104,7 @@ def causal_conv3d_cl(x, weight, bias=None, causal: bool = True, time_pad: str = 
     else:
         if time_pad != "valid":
             x = replicate_pad_time(x, kt, causal, dim=1)
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight, bias, padding=(0, kh // 2, kw // 2))
+        with debug.span("conv"):
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight, bias,
+                         padding=(0, kh // 2, kw // 2))
     return y.permute(0, 2, 3, 4, 1).contiguous()

@@ -38,6 +38,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ...utils import debug
 from . import _build
 
 NAME = "conv3d_igemm"
@@ -160,17 +161,19 @@ def conv3d_igemm(x, weight, bias=None, causal: bool = True, time_pad: str = "edg
     for tensor in (x, w27, bias):
         if tensor is not None and (tensor.device != x.device or tensor.data_ptr() % 16):
             raise ValueError(f"{NAME}: every input must be on {x.device}, 16-byte aligned")
-    y = torch.empty((b, o, t_out, h, w), dtype=torch.bfloat16, device=x.device,
-                    memory_format=torch.channels_last_3d)
-    plan = plan_conv3d(b, t_out, h, w, c, o, _build.sm_count(x.device.index))
-    ws = None
-    if plan["split"] > 1:
-        ws = torch.empty((plan["split"], b * t_out * h * w, o), dtype=torch.float32,
-                         device=x.device)
-    err = _build.lib().cvt_conv3d_igemm(
-        x.data_ptr(), w27.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(), b, t, h, w, c, o, _MODES[mode], plan["bh"],
-        plan["bw"], plan["bn"], plan["split"], torch.cuda.current_stream(x.device).cuda_stream)
+    with debug.span("conv"):
+        y = torch.empty((b, o, t_out, h, w), dtype=torch.bfloat16, device=x.device,
+                        memory_format=torch.channels_last_3d)
+        plan = plan_conv3d(b, t_out, h, w, c, o, _build.sm_count(x.device.index))
+        ws = None
+        if plan["split"] > 1:
+            ws = torch.empty((plan["split"], b * t_out * h * w, o), dtype=torch.float32,
+                             device=x.device)
+        err = _build.lib().cvt_conv3d_igemm(
+            x.data_ptr(), w27.data_ptr(), None if bias is None else bias.data_ptr(),
+            y.data_ptr(), None if ws is None else ws.data_ptr(), b, t, h, w, c, o,
+            _MODES[mode], plan["bh"], plan["bw"], plan["bn"], plan["split"],
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return y

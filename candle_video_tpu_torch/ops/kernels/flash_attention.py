@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import debug
 from . import _build
 from .flash_attention_packed import launch_params
 
@@ -72,13 +73,15 @@ def flash_attention(q, k, v, *, scale: float, bias=None):
         return flash_attention_plain(q, k, v, scale=scale, bias=bias)
     _check(q, k, v, bias)
     b, s, h, d = q.shape
-    launch = launch_params(d, "online")
-    out = torch.empty_like(q)
-    err = _build.lib().cvt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), b, s, k.shape[1], h, d, float(scale), launch["consumers"],
-        launch["stages"], launch["smem_bytes"], torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with debug.span("attn.kernel"):
+        launch = launch_params(d, "online")
+        out = torch.empty_like(q)
+        err = _build.lib().cvt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), b, s, k.shape[1], h, d, float(scale), launch["consumers"],
+            launch["stages"], launch["smem_bytes"],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return out

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..rope import apply_rotary_emb
+from ...utils import debug
 from . import _build
 
 NAME = "flash_attention_packed"
@@ -226,17 +227,18 @@ def flash_attention_packed_onepass(q, k, v, *, num_heads: int, scale: float, bia
     b, s, hd = q.shape
     kv = k.shape[1]
     d = hd // num_heads
-    launch = launch_params(d, "online")
-    out = torch.empty_like(q)
-    cos, sin = rope_q if rope_q is not None else (None, None)
-    rope_bstride = 0 if cos is None or cos.shape[0] == 1 else s * hd
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _build.lib().cvt_flash_attention_packed(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias), ptr(cos), ptr(sin),
-        out.data_ptr(), b, s, kv, num_heads, d, rope_bstride, float(scale),
-        launch["consumers"], launch["stages"], launch["smem_bytes"],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with debug.span("attn.kernel"):
+        launch = launch_params(d, "online")
+        out = torch.empty_like(q)
+        cos, sin = rope_q if rope_q is not None else (None, None)
+        rope_bstride = 0 if cos is None or cos.shape[0] == 1 else s * hd
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        err = _build.lib().cvt_flash_attention_packed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias), ptr(cos), ptr(sin),
+            out.data_ptr(), b, s, kv, num_heads, d, rope_bstride, float(scale),
+            launch["consumers"], launch["stages"], launch["smem_bytes"],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return out
@@ -266,17 +268,18 @@ def launch_long(q, k, v, shift, *, num_heads: int, scale: float, bias=None, rope
     b, s, hd = q.shape
     kv = k.shape[1]
     d = hd // num_heads
-    launch = launch_params(d, "fixed")
-    out = torch.empty_like(q)
-    cos, sin = rope_q if rope_q is not None else (None, None)
-    rope_bstride = 0 if cos is None or cos.shape[0] == 1 else s * hd
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _build.lib().cvt_flash_attention_packed_long(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias), ptr(cos), ptr(sin),
-        shift.data_ptr(), out.data_ptr(), b, s, kv, num_heads, d, rope_bstride,
-        float(scale), launch["consumers"], launch["stages"], launch["smem_bytes"],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with debug.span("attn.kernel"):
+        launch = launch_params(d, "fixed")
+        out = torch.empty_like(q)
+        cos, sin = rope_q if rope_q is not None else (None, None)
+        rope_bstride = 0 if cos is None or cos.shape[0] == 1 else s * hd
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        err = _build.lib().cvt_flash_attention_packed_long(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias), ptr(cos), ptr(sin),
+            shift.data_ptr(), out.data_ptr(), b, s, kv, num_heads, d, rope_bstride,
+            float(scale), launch["consumers"], launch["stages"], launch["smem_bytes"],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(err, NAME_LONG)
     _build.LAUNCHES[NAME_LONG] += 1
     return out

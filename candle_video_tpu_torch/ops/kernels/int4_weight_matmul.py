@@ -36,6 +36,7 @@ import functools
 import numpy as np
 import torch
 
+from ...utils import debug
 from . import _build
 from .int8_weight_matmul import (H100_CLUSTERS, cluster_slots, count_dequant_route, dot_bf16,
                                  pad_columns, plan_weight_only, qblock_ok)
@@ -141,8 +142,11 @@ def w4_matmul_xla_equivalent(x, w_p, s_w, m_w, bias=None, qblock: int = QBLOCK4,
     transient bf16 weight, then one matmul with f32 accumulation."""
     count_dequant_route(x, DEQUANT_NAME)
     out_dtype = out_dtype or x.dtype
-    w = dequantize(w_p, s_w, m_w, qblock, compute_dtype)
-    return _with_bias(dot_bf16(x, w, out_dtype), bias, out_dtype)
+    with debug.span("w4.dequant"):
+        w = dequantize(w_p, s_w, m_w, qblock, compute_dtype)
+    with debug.span("matmul"):
+        y = dot_bf16(x, w, out_dtype)
+    return _with_bias(y, bias, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -196,12 +200,13 @@ def _launch(x, w_p, s_w, m_w, bias, qblock, plan=None):
     if plan is None:
         plan = plan_w4(m, k, n, qblock, s_w.element_size(), cluster_slots(x.device.index))
     w_p, s_w, m_w = pad_columns(plan["n_pad"], w_p, s_w, m_w)
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    err = _build.lib().cvt_w4_matmul(
-        x.data_ptr(), w_p.data_ptr(), s_w.data_ptr(), m_w.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(), m, k, n, plan["n_pad"],
-        qblock, int(s_w.dtype == torch.bfloat16), plan["bn"], plan["stages"], plan["split"],
-        plan["smem_bytes"], torch.cuda.current_stream(x.device).cuda_stream)
+    with debug.span("matmul"):
+        y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+        err = _build.lib().cvt_w4_matmul(
+            x.data_ptr(), w_p.data_ptr(), s_w.data_ptr(), m_w.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(), m, k, n, plan["n_pad"],
+            qblock, int(s_w.dtype == torch.bfloat16), plan["bn"], plan["stages"],
+            plan["split"], plan["smem_bytes"], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return y

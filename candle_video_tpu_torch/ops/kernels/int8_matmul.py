@@ -32,6 +32,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ...utils import debug
 from . import _build
 
 NAME = "w8a8_matmul"
@@ -167,15 +168,16 @@ def _launch(x_q, s_x, w_q, s_w, bias, plan=None):
         plan = plan_w8a8(m, k, n, _build.sm_count(x_q.device.index))
     if plan["k_pad"] != k:
         x_q, w_q = (F.pad(t, (0, plan["k_pad"] - k)) for t in (x_q, w_q))
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=x_q.device)
-    ws = None
-    if plan["workspace"] is not None:
-        ws = torch.empty(plan["workspace"], dtype=torch.int32, device=x_q.device)
-    err = _build.lib().cvt_w8a8_matmul(
-        x_q.data_ptr(), s_x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(),
-        None if bias is None else bias.data_ptr(), None if ws is None else ws.data_ptr(),
-        y.data_ptr(), m, plan["k_pad"], n, plan["bn"], plan["stages"], plan["split"],
-        plan["smem_bytes"], torch.cuda.current_stream(x_q.device).cuda_stream)
+    with debug.span("matmul"):
+        y = torch.empty((m, n), dtype=torch.bfloat16, device=x_q.device)
+        ws = None
+        if plan["workspace"] is not None:
+            ws = torch.empty(plan["workspace"], dtype=torch.int32, device=x_q.device)
+        err = _build.lib().cvt_w8a8_matmul(
+            x_q.data_ptr(), s_x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(),
+            None if bias is None else bias.data_ptr(), None if ws is None else ws.data_ptr(),
+            y.data_ptr(), m, plan["k_pad"], n, plan["bn"], plan["stages"], plan["split"],
+            plan["smem_bytes"], torch.cuda.current_stream(x_q.device).cuda_stream)
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return y

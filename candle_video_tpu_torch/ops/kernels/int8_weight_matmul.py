@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils import debug
 from . import _build
 
 NAME = "w8_matmul"
@@ -250,12 +251,13 @@ def _launch(x, w_q, s_w, bias, qblock, plan=None):
     if plan is None:
         plan = plan_w8(m, k, n, qblock, cluster_slots(x.device.index))
     w_q, s_w = pad_columns(plan["n_pad"], w_q, s_w)
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    err = _build.lib().cvt_w8_matmul(
-        x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(), m, k, n, plan["n_pad"],
-        qblock, plan["bn"], plan["stages"], plan["split"], plan["smem_bytes"],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with debug.span("matmul"):
+        y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+        err = _build.lib().cvt_w8_matmul(
+            x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(), m, k, n, plan["n_pad"],
+            qblock, plan["bn"], plan["stages"], plan["split"], plan["smem_bytes"],
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return y
@@ -266,7 +268,10 @@ def w8_matmul_dequant(x, w_q, s_w, bias=None, qblock: int = QBLOCK, out_dtype=No
     one bf16 matmul with f32 accumulation, the bias added after."""
     count_dequant_route(x, DEQUANT_NAME)
     out_dtype = out_dtype or x.dtype
-    y = dot_bf16(x, dequantize(w_q, s_w, qblock), out_dtype)
+    with debug.span("w8.dequant"):
+        w = dequantize(w_q, s_w, qblock)
+    with debug.span("matmul"):
+        y = dot_bf16(x, w, out_dtype)
     return y if bias is None else y + bias.to(out_dtype)
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import debug
 from . import _build
 from .flash_attention_packed import launch_params
 
@@ -98,12 +99,14 @@ def ring_chunk_update(q, k, v, m, l, acc, *, num_heads: int, scale: float):
         return ring_chunk_update_plain(q, k, v, m, l, acc, num_heads=num_heads, scale=scale)
     _check(q, k, v, m, l, acc, num_heads)
     b, sq, hd = q.shape
-    launch = launch_params(hd // num_heads, "ring")
-    err = _build.lib().cvt_ring_chunk_update(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-        b, sq, k.shape[1], num_heads, hd // num_heads, float(scale), launch["consumers"],
-        launch["stages"], launch["smem_bytes"], torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with debug.span("attn.kernel"):
+        launch = launch_params(hd // num_heads, "ring")
+        err = _build.lib().cvt_ring_chunk_update(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(),
+            acc.data_ptr(), b, sq, k.shape[1], num_heads, hd // num_heads, float(scale),
+            launch["consumers"], launch["stages"], launch["smem_bytes"],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return m, l, acc

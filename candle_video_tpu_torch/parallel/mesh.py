@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quant_linear import Int4Linear, Int8Linear, W8A8Linear
+from ..utils import debug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,7 +126,8 @@ class RowShardedLinear(nn.Module):
         self.group = group
 
     def forward(self, x):
-        y = F.linear(x, self.weight)
+        with debug.span("matmul"):
+            y = F.linear(x, self.weight)
         dist.all_reduce(y, group=self.group)
         return y if self.bias is None else y + self.bias
 

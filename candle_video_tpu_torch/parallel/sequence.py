@@ -27,6 +27,7 @@ import torch.distributed as dist
 
 from ..ops.attention import attention
 from ..ops.ring import ring_self_attention
+from ..utils import debug
 from .mesh import Mesh
 
 
@@ -123,16 +124,18 @@ def denoise_loop_sp(transformer, latents, encoder_hidden_states, encoder_attenti
 
     n = schedule.timesteps.shape[0]
     for i in range(n):
-        t0 = time.perf_counter()
-        t, sigma, sigma_next = (float(schedule.timesteps[i]), float(schedule.sigmas[i]),
-                                float(schedule.sigmas[i + 1]))
-        lat_in = lat.repeat(num_conds, 1, 1)
-        timestep = torch.full((num_conds * bl,), t, dtype=torch.float32, device=lat.device)
-        pred = transformer(lat_in, enc, timestep, cos, sin, encoder_attention_mask=mask,
-                           skip_layer_mask=skip, ring=mesh.sp_group).float()
-        combined = guidance_combine(pred, bl, num_conds, guidance_scale, guidance_rescale,
-                                    stg_scale, std=std)
-        lat = S.step(lat, combined, sigma, sigma_next)
+        t0 = time.perf_counter() if step_seconds is not None else None
+        with debug.span("denoise_step", step=i):
+            t, sigma, sigma_next = (float(schedule.timesteps[i]), float(schedule.sigmas[i]),
+                                    float(schedule.sigmas[i + 1]))
+            lat_in = lat.repeat(num_conds, 1, 1)
+            timestep = torch.full((num_conds * bl,), t, dtype=torch.float32,
+                                  device=lat.device)
+            pred = transformer(lat_in, enc, timestep, cos, sin, encoder_attention_mask=mask,
+                               skip_layer_mask=skip, ring=mesh.sp_group).float()
+            combined = guidance_combine(pred, bl, num_conds, guidance_scale, guidance_rescale,
+                                        stg_scale, std=std)
+            lat = S.step(lat, combined, sigma, sigma_next)
         if step_seconds is not None:
             _sync(lat.device)
             step_seconds.append(time.perf_counter() - t0)

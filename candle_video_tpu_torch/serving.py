@@ -25,10 +25,19 @@ continuous batching around one ``LtxPipeline``.
   class).  The CFG/STG rows stack on the same batch axis, so a batch of N
   runs one forward of N × num_conds rows a step.
 - **Stats**: per-bucket latency, queue depth, served count, batch size.
-- **Observability** (``utils/debug.py``): with ``CVT_LOG=info`` each served
-  call logs one JSON line (bucket, rows, milliseconds); with
-  ``CVT_PROFILE=<dir>`` each served call is a ``torch.profiler`` window
-  written to ``<dir>/serve_NNNNN_bR.trace.json`` (R rows).
+- **Observability** (``utils/debug.py``): each served ``generate`` call is
+  a ``serve.call`` span (``rows``, ``request_ids``) that holds
+  ``generate`` and, in a batch's call, ``serve.rows`` (the row draws and
+  concatenations) and ``serve.handoff`` (the rows to the callers); its
+  seconds, to the end of ``generate``, are the bucket's ``last_ms``.
+  Inside ``debug.recording()`` the spans are kept, with one
+  ``serve.queue_wait`` a request (``request_id``) from ``submit`` to the
+  moment the worker takes it into a batch, a stay in the pending list
+  included.  With ``CVT_LOG=info`` each served call logs one JSON line
+  (bucket, rows, milliseconds); with ``CVT_PROFILE=<dir>`` each served
+  call is a ``torch.profiler`` window written to
+  ``<dir>/serve_NNNNN_bR.trace.json`` (R rows), which holds the call's
+  span.
 
 A stochastic preset (``0.9.6-distilled``) draws its step noise from the
 first request's seed for the whole batch, as the JAX server does, so there
@@ -75,6 +84,7 @@ class Request:
     bucket: Optional[ShapeBucket] = None
     seed: int = 42
     output_type: str = "tensor"
+    request_id: Any = None  # the caller's name for it, on its spans
 
 
 def _sync(device):
@@ -106,7 +116,8 @@ class VideoGenerationServer:
                 "image conditioning is not supported as a server-level generate kwarg; "
                 "serve conditioned requests through generate() directly")
         self._gen_kwargs = generate_kwargs
-        self._queue: "queue.Queue[tuple[Request, queue.Queue]]" = queue.Queue()
+        # (request, result queue, debug.mark() at submit)
+        self._queue: "queue.Queue[tuple[Request, queue.Queue, Any]]" = queue.Queue()
         # items skipped by _drain_batch, served before new queue items
         self._pending: list = []
         self._stats: Dict[Tuple, Dict[str, float]] = {}
@@ -148,7 +159,7 @@ class VideoGenerationServer:
     def stop(self):
         self._stop.set()
         if self._worker is not None:
-            self._queue.put((None, None))  # wake
+            self._queue.put((None, None, None))  # wake
             self._worker.join(timeout=30)
 
     # -- request path ---------------------------------------------------------
@@ -157,7 +168,7 @@ class VideoGenerationServer:
         """Enqueue; returns a one-item queue that receives the result (or the
         exception that serving it raised)."""
         out: "queue.Queue" = queue.Queue(maxsize=1)
-        self._queue.put((request, out))
+        self._queue.put((request, out, debug.mark()))
         return out
 
     def generate_sync(self, request: Request, timeout: Optional[float] = None):
@@ -218,10 +229,11 @@ class VideoGenerationServer:
             **self._bucket_kwargs(self._pick_bucket(request)),
         )
 
-    def _record(self, b: ShapeBucket, n: int, t0: float, batched: bool):
+    def _record(self, b: ShapeBucket, n: int, call: debug.Span, batched: bool):
+        """The stats and the log line of a served call, timed by its span."""
         rec = self._stats.setdefault(b.key(), {"served": 0, "last_ms": 0.0})
         rec["served"] += n
-        rec["last_ms"] = round((time.time() - t0) * 1000.0, 1)
+        rec["last_ms"] = round(call.seconds() * 1000.0, 1)
         if batched:
             rec["last_batch"] = n
         self._served += n
@@ -229,11 +241,11 @@ class VideoGenerationServer:
 
     def _serve_one(self, request: Request):
         b = self._pick_bucket(request)
-        with debug.trace(f"serve_{self._served:05d}_b1"):
-            t0 = time.time()
+        with debug.trace(f"serve_{self._served:05d}_b1"), \
+                debug.Span("serve.call", rows=1, request_ids=[request.request_id]) as call:
             out = self._generate(request)
             _sync(out.device)
-            self._record(b, 1, t0, batched=False)
+            self._record(b, 1, call, batched=False)
         return out
 
     # -- continuous batching --------------------------------------------------
@@ -303,40 +315,48 @@ class VideoGenerationServer:
         return R.normal(R.prng_key(request.seed + 2), self._latent_shape(bucket))
 
     def _serve_batch(self, items):
-        """Serve same-bucket requests as one batched generate call."""
-        requests = [r for r, _ in items]
+        """Serve same-bucket queue items as one batched generate call; each
+        item's result queue gets its row."""
+        requests = [r for r, _, _ in items]
         b = self._pick_bucket(requests[0])
-        with debug.trace(f"serve_{self._served:05d}_b{len(items)}"):
-            t0 = time.time()
+        with debug.trace(f"serve_{self._served:05d}_b{len(items)}"), \
+                debug.Span("serve.call", rows=len(items),
+                           request_ids=[r.request_id for r in requests]) as call:
             out = self._batched_generate(requests, b)
-            self._record(b, len(items), t0, batched=True)
-        return [out[i:i + 1] for i in range(len(items))]
+            self._record(b, len(items), call, batched=True)
+            with debug.span("serve.handoff"):
+                for i, (_, result, _) in enumerate(items):
+                    result.put(out[i:i + 1])
 
     def _batched_generate(self, requests, b):
         """One generate() over N same-bucket embedding requests (the
         continuous-batching path; warmup runs it too)."""
         device = self._pipe.device
         shape, seeds = self._latent_shape(b), [r.seed for r in requests]
-        if self._gen_kwargs.get("use_pcg_rng", True):
-            # PCG rows are host-side by contract
-            latents = torch.from_numpy(
-                np.concatenate([self._row_latents(r, b) for r in requests])).to(device)
-        else:
-            latents = R.rows_normal(seeds, shape, device=device)
-        decode_noise = None
-        if (requests[0].output_type != "latent" and self._pipe.vae is not None
-                and self._pipe.config.vae.timestep_conditioning):
-            decode_noise = R.rows_normal(seeds, shape, offset=2, device=device)
-        neg = requests[0].negative_prompt_embeds is not None
+        with debug.span("serve.rows"):
+            if self._gen_kwargs.get("use_pcg_rng", True):
+                # PCG rows are host-side by contract
+                latents = torch.from_numpy(
+                    np.concatenate([self._row_latents(r, b) for r in requests])).to(device)
+            else:
+                latents = R.rows_normal(seeds, shape, device=device)
+            decode_noise = None
+            if (requests[0].output_type != "latent" and self._pipe.vae is not None
+                    and self._pipe.config.vae.timestep_conditioning):
+                decode_noise = R.rows_normal(seeds, shape, offset=2, device=device)
+            neg = requests[0].negative_prompt_embeds is not None
+            embeds = _cat([r.prompt_embeds for r in requests], device)
+            mask = _cat([r.prompt_attention_mask for r in requests], device)
+            neg_embeds = neg_mask = None
+            if neg:
+                neg_embeds = _cat([r.negative_prompt_embeds for r in requests], device)
+                neg_mask = _cat([r.negative_prompt_attention_mask for r in requests], device)
         out = generate(
             self._pipe,
-            prompt_embeds=_cat([r.prompt_embeds for r in requests], device),
-            prompt_attention_mask=_cat([r.prompt_attention_mask for r in requests], device),
-            negative_prompt_embeds=(
-                _cat([r.negative_prompt_embeds for r in requests], device) if neg else None),
-            negative_prompt_attention_mask=(
-                _cat([r.negative_prompt_attention_mask for r in requests], device)
-                if neg else None),
+            prompt_embeds=embeds,
+            prompt_attention_mask=mask,
+            negative_prompt_embeds=neg_embeds,
+            negative_prompt_attention_mask=neg_mask,
             latents=latents,
             decode_noise=decode_noise,
             seed=requests[0].seed,
@@ -358,17 +378,17 @@ class VideoGenerationServer:
                     if item[0] is None:
                         continue
                 batch = self._drain_batch(item) if self._max_batch > 1 else [item]
+                for request, _, submitted in batch:
+                    debug.since("serve.queue_wait", submitted, request_id=request.request_id)
                 if len(batch) == 1:
-                    request, out = batch[0]
+                    request, out, _ = batch[0]
                     try:
                         out.put(self._serve_one(request))
                     except Exception as e:  # the caller's result queue gets it
                         out.put(e)
                     continue
                 try:
-                    results = self._serve_batch(batch)
-                    for (_, out), res in zip(batch, results):
-                        out.put(res)
+                    self._serve_batch(batch)
                 except Exception as e:
-                    for _, out in batch:
+                    for _, out, _ in batch:
                         out.put(e)
