@@ -68,6 +68,9 @@ _SIGNATURES = {
     # x, w_p, s, m, bias (bf16 or null), out, M, K, N, n_pad, qblock,
     # scale_bf16, bn, stages, split, shared memory bytes, stream
     "cvt_w4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # w_p, s, m, out (bf16 [K, N]), K, N, qblock, scale_bf16, order_bf16 (q·s
+    # rounded to bf16 before + m), stream
+    "cvt_w4_dequant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # split, shared memory bytes, out (int*): clusters of split CTAs the
     # card holds at once
     "cvt_weight_only_max_clusters": [_I, _I, _P],

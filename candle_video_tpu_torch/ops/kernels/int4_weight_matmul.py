@@ -13,7 +13,10 @@ Two dequant orders exist, as in the JAX package, and they are kept apart:
 - the transient route (``w4_matmul_xla_equivalent``): the JAX package's
   ``w4_matmul_xla``, computing ``q·s + m`` in ``compute_dtype``.  With
   bf16 (the DiT's choice) the product and the sum are each rounded to bf16,
-  which differs from the kernel route in over a third of the weights.
+  which differs from the kernel route in over a third of the weights.  Its
+  transient bf16 weight comes from ``w4_dequant``: on CUDA tensors one pass
+  of ``csrc/w4_dequant.cu`` (counted as ``w4_dequant``), bit for bit the
+  plain ``dequantize`` in either order, then one cuBLAS matmul.
 
 CPU tensors take the plain version.  CUDA tensors launch the kernel, or,
 for a qblock the kernel is not built for (``qblock_ok``), chosen by shape
@@ -43,6 +46,7 @@ from .int8_weight_matmul import (H100_CLUSTERS, cluster_slots, count_dequant_rou
 
 NAME = "w4_matmul"
 DEQUANT_NAME = "w4_matmul_dequant"  # the transient route on the card
+DEQUANT_KERNEL = "w4_dequant"  # its one-pass dequant kernel
 QBLOCK4 = 32  # GGUF Q4_K sub-block size along K
 W4_XLA_MIN_M = 1024
 _SCALE_DTYPES = (torch.float32, torch.bfloat16)
@@ -143,15 +147,56 @@ def w4_matmul_xla_equivalent(x, w_p, s_w, m_w, bias=None, qblock: int = QBLOCK4,
     count_dequant_route(x, DEQUANT_NAME)
     out_dtype = out_dtype or x.dtype
     with debug.span("w4.dequant"):
-        w = dequantize(w_p, s_w, m_w, qblock, compute_dtype)
+        w = w4_dequant(w_p, s_w, m_w, qblock, compute_dtype)
     with debug.span("matmul"):
         y = dot_bf16(x, w, out_dtype)
     return _with_bias(y, bias, out_dtype)
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrapper
+# Kernel wrappers
 # ---------------------------------------------------------------------------
+
+
+def _check_dequant(w_p, s_w, m_w, qblock, compute_dtype):
+    if w_p.dtype != torch.uint8 or s_w.dtype not in _SCALE_DTYPES or \
+            m_w.dtype != s_w.dtype or compute_dtype not in _SCALE_DTYPES:
+        raise TypeError(f"{DEQUANT_KERNEL}: needs uint8 w_p, f32 or bf16 s and m of one dtype "
+                        f"and an f32 or bf16 compute dtype; got {w_p.dtype}, {s_w.dtype}, "
+                        f"{m_w.dtype}, {compute_dtype}")
+    k = 2 * w_p.shape[0] if w_p.dim() == 2 else 0
+    n = w_p.shape[-1]
+    if (k == 0 or qblock < 1 or k % (2 * qblock) or n % 8
+            or s_w.shape != (k // qblock, n) or m_w.shape != s_w.shape):
+        raise ValueError(f"{DEQUANT_KERNEL}: w_p {tuple(w_p.shape)} s {tuple(s_w.shape)} "
+                         f"m {tuple(m_w.shape)} qblock {qblock}: needs w_p [K/2, N] and s, m "
+                         "[K/qblock, N] with K % (2*qblock) == 0 and N % 8 == 0")
+    for t in (w_p, s_w, m_w):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{DEQUANT_KERNEL}: inputs must be contiguous and 16-byte aligned")
+    for t in (w_p, s_w, m_w):
+        if not t.is_cuda or t.device != w_p.device:
+            raise ValueError(f"{DEQUANT_KERNEL}: every input must be on one CUDA device, "
+                             f"not {t.device}")
+
+
+def w4_dequant(w_p, s_w, m_w, qblock: int = QBLOCK4, compute_dtype=torch.float32):
+    """The transient route's bf16 [K, N] weight: ``dequantize`` on CPU
+    tensors; on CUDA tensors one launch of the one-pass kernel, bit for bit
+    ``dequantize`` in the same ``compute_dtype`` order, or a raise on what it
+    does not take."""
+    if w_p.device.type == "cpu":
+        return dequantize(w_p, s_w, m_w, qblock, compute_dtype)
+    _check_dequant(w_p, s_w, m_w, qblock, compute_dtype)
+    kh, n = w_p.shape
+    w = torch.empty((2 * kh, n), dtype=torch.bfloat16, device=w_p.device)
+    err = _build.lib().cvt_w4_dequant(
+        w_p.data_ptr(), s_w.data_ptr(), m_w.data_ptr(), w.data_ptr(), 2 * kh, n, qblock,
+        int(s_w.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
+        torch.cuda.current_stream(w_p.device).cuda_stream)
+    _build.check(err, DEQUANT_KERNEL)
+    _build.LAUNCHES[DEQUANT_KERNEL] += 1
+    return w
 
 
 @functools.lru_cache(maxsize=256)

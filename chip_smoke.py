@@ -5,7 +5,9 @@ holds each against its plain PyTorch version at the main paths' shapes (K1
 at the served batch of two, the 13B-dev request's three rows and one 13B
 tensor-parallel rank's 16 heads too; all
 eight, and R1, also as copies broken on purpose, which must fail; K3 and K4 also at
-qblocks the kernel is not built for, on their dequant route), then
+qblocks the kernel is not built for, on their dequant route; the W4
+transient dequant kernel ``csrc/w4_dequant.cu`` at the 13B DiT's shapes, bit
+for bit, beside its byte bound, and a copy broken on purpose), then
 drives on random weights, checking the outputs and the kernels' launch
 counts of every request:
 
@@ -61,7 +63,7 @@ counts of every request:
   then the ``0.9.8-13b-dev`` request as published on the same weights
   (guidance 8, STG 4.0, rescale 0.5, skip blocks 11, 25, 35, 39, a negative
   prompt: three rows a step through K1, K4 and the transient dequant
-  route), 30 steps;
+  route), 30 steps; every transient-route call one ``w4_dequant`` launch;
 - the 13B W8A16 tier (int8 T5 → 13B DiT with int8 block linears): one
   request, then the 13B-dev request cut to 4 steps;
 - the dense 13B in bf16 through the multi-GPU paths on the one card:
@@ -298,7 +300,7 @@ def by_frame(plain, q, k, v, bias=None, **kw):
 
 # the sources whose kernels must keep every value in registers
 NO_SPILLS = ("flash_attention_hopper.cu", "conv3d_igemm.cu", "int8_matmul.cu",
-             "weight_only_matmul_hopper.cu", "threefry_normal.cu")
+             "weight_only_matmul_hopper.cu", "threefry_normal.cu", "w4_dequant.cu")
 
 
 def check_ptxas(card):
@@ -1055,8 +1057,9 @@ NARROW_QBLOCK_TOL = dict(rel=2e-3)
 
 def check_narrow_qblocks(card):
     """Each ``NARROW_QBLOCK_CASES`` call on the card goes to the dequant route
-    (one count of ``w8_matmul_dequant`` / ``w4_matmul_dequant``, no kernel
-    launch) and agrees with the plain version."""
+    (one count of ``w8_matmul_dequant`` / ``w4_matmul_dequant``, no matmul
+    kernel launch; K4's dequant is one ``w4_dequant`` launch) and agrees with
+    the plain version."""
     from candle_video_tpu_torch.ops.kernels import _build
     from candle_video_tpu_torch.ops.kernels import int4_weight_matmul as K4
     from candle_video_tpu_torch.ops.kernels import int8_weight_matmul as K3
@@ -1090,19 +1093,122 @@ def check_narrow_qblocks(card):
         got = call(*args)
         launches = dict(_build.LAUNCHES)
         err = errors(got, plain(*args))
-        if launches != {mod.DEQUANT_NAME: 1}:
-            raise AssertionError(f"{tag} qb {qb}: launches {launches}, want one "
-                                 f"{mod.DEQUANT_NAME} and no kernel")
+        want = {mod.DEQUANT_NAME: 1, **({K4.DEQUANT_KERNEL: 1} if mod is K4 else {})}
+        if launches != want:
+            raise AssertionError(f"{tag} qb {qb}: launches {launches}, want {want} and no "
+                                 "matmul kernel")
         if not err["rel"] <= NARROW_QBLOCK_TOL["rel"]:
             raise AssertionError(f"{tag} qb {qb} ({mod.DEQUANT_NAME}) disagrees with its plain "
                                  f"version: {err}")
         ms = cuda_ms(lambda: call(*args), iters=20)
         row = dict(tag=tag, m=m, k=kk, n=n, qblock=qb, route=mod.DEQUANT_NAME, ms=ms, **err)
-        log(f"[{tag} qb {qb}] M={m} K={kk} N={n}: {mod.DEQUANT_NAME} (no kernel launch) "
+        log(f"[{tag} qb {qb}] M={m} K={kk} N={n}: {mod.DEQUANT_NAME} (no matmul kernel) "
             f"rel={err['rel']:.3e} max_abs={err['max_abs']:.3e} (limit rel "
             f"{NARROW_QBLOCK_TOL['rel']}) {ms:.4f} ms | {card}")
         rows.append(row)
     RESULTS["narrow_qblocks"] = rows
+
+
+# The W4 transient dequant (csrc/w4_dequant.cu) at the 13B DiT's large-M
+# shapes, qblock 32: (label, K, N, launches a 13B step).  A step runs attn1
+# q/k/v/out and attn2 q/out at 4096x4096, FF up at 4096x16384 and FF down at
+# 16384x4096 in each of its 48 blocks.
+W4DQ_CASES = [("13B attn 4096x4096", 4096, 4096, 6 * 48),
+              ("13B ff up 4096x16384", 4096, 16384, 48),
+              ("13B ff down 16384x4096", 16384, 4096, 48)]
+# a copy that adds m to q·s without rounding the product to bf16 first: the
+# DiT's bf16 order must then differ in every case (the f32 order does not)
+W4DQ_BREAK = ("return __fadd_rn(BF16_ORDER ? round_bf16(p) : p, m);",
+              "return __fadd_rn(p, m);")
+# bytes of memory the timed calls of one case cycle through, so that each
+# call finds its codes and scales outside the 50 MB L2, as a step's linears do
+W4DQ_SWEEP_BYTES = 256e6
+
+
+def check_w4_dequant(card):
+    """The one-pass W4 dequant against the plain ``dequantize`` on the card at
+    ``W4DQ_CASES``, bit for bit, in both orders with f32 and bf16 scales, one
+    launch each; the DiT's case (bf16 order, bf16 scales) timed through the
+    wrapper (``ms``) and on the device by ``torch.profiler`` (``kernel_ms``)
+    over distinct payloads, beside its byte bound (codes, s, m in, the bf16
+    weight out: 2.625 B a weight), the plain version and the host work a call.
+    Then the broken copy, which must differ in every bf16-order case.
+    Returns the rows and the step's sums."""
+    from candle_video_tpu_torch.ops.kernels import _build
+    from candle_video_tpu_torch.ops.kernels import int4_weight_matmul as K4
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    qb, order = 32, torch.bfloat16
+    rows, inputs = [], {}
+    for label, kk, n, per_step in W4DQ_CASES:
+        w_p = torch.randint(0, 256, (kk // 2, n), generator=g, device=dev, dtype=torch.uint8)
+        s32 = (torch.rand(kk // qb, n, generator=g, device=dev) * 0.5 + 0.75) * (0.02 / 4.61)
+        m32 = -7.5 * s32 * (1.0 + 0.05 * torch.randn(s32.shape, generator=g, device=dev))
+        for sdt in (torch.float32, torch.bfloat16):
+            for cdt in (torch.bfloat16, torch.float32):
+                s, m = s32.to(sdt), m32.to(sdt)
+                _build.reset_launches()
+                got = K4.w4_dequant(w_p, s, m, qb, cdt)
+                launches = dict(_build.LAUNCHES)
+                want = K4.dequantize(w_p, s, m, qb, cdt)
+                torch.cuda.synchronize()
+                unequal = int((got != want).sum())
+                if unequal or launches != {K4.DEQUANT_KERNEL: 1}:
+                    raise AssertionError(
+                        f"w4_dequant {label} scales {sdt} order {cdt}: {unequal} weights "
+                        f"differ from dequantize, launches {launches}")
+                inputs[label, str(sdt), str(cdt)] = (w_p, s, m, cdt, want)
+        s, m = s32.bfloat16(), m32.bfloat16()
+        nbytes = kk // 2 * n + 2 * (kk // qb) * n * 2 + 2 * kk * n
+        copies = max(1, math.ceil(W4DQ_SWEEP_BYTES / nbytes))
+        payloads = [(w_p.clone(), s.clone(), m.clone()) for _ in range(copies)]
+
+        def sweep(payloads=payloads):
+            for a in payloads:
+                K4.w4_dequant(*a, qb, order)
+
+        ms = cuda_ms(sweep, iters=10) / copies
+        by_name = kernel_device_ms(sweep, iters=5, repeats=3)
+        kernel_ms = device_ms_of(by_name, "w4_dequant_kernel")
+        kernel_ms = None if kernel_ms is None else kernel_ms / copies
+        plain_ms = cuda_ms(lambda: K4.dequantize(w_p, s, m, qb, order), iters=5)
+        host = host_ms(lambda: K4.w4_dequant(w_p, s, m, qb, order))
+        del payloads
+        row = dict(label=label, k=kk, n=n, qblock=qb, unequal=0, ms=ms, kernel_ms=kernel_ms,
+                   plain_ms=plain_ms, host_ms=host, library_ms=None, max_abs=0.0,
+                   launches_per_step=per_step, bytes=nbytes, **bound(0.0, nbytes))
+        row["bound_share"] = row["bound_ms"] / kernel_ms if kernel_ms else None
+        share = "n/a" if row["bound_share"] is None else f"{row['bound_share']:.1%}"
+        log(f"[w4_dequant] {label} qb {qb}: bit-equal to dequantize in both orders with f32 "
+            f"and bf16 scales, 1 launch each | bf16 order, bf16 scales, over {copies} "
+            f"payloads: {ms:.4f} ms through the wrapper, "
+            f"{'not measured' if kernel_ms is None else f'{kernel_ms:.4f} ms'} on the device "
+            f"({share} of the {row['bound_ms']:.4f} ms bound, {row['bound_by']}: "
+            f"{nbytes / (kk * n):.3f} B a weight), {host:.4f} ms of host work a call; "
+            f"plain={plain_ms:.4f} ms | {card}")
+        rows.append(row)
+    step = {key: None if any(r[key] is None for r in rows)
+            else sum(r[key] * r["launches_per_step"] for r in rows)
+            for key in ("kernel_ms", "plain_ms", "bound_ms")}
+    step["launches"] = sum(r["launches_per_step"] for r in rows)
+    dev_ms = "not measured" if step["kernel_ms"] is None else f"{step['kernel_ms']:.2f} ms"
+    log(f"[w4_dequant] a 13B step's {step['launches']} dequants: {dev_ms} on the device "
+        f"against a {step['bound_ms']:.2f} ms bound; plain {step['plain_ms']:.2f} ms | {card}")
+
+    def run_broken():
+        return {key: int((K4.w4_dequant(w_p, s, m, qb, cdt) != want).sum())
+                for key, (w_p, s, m, cdt, want) in inputs.items()}
+
+    broken = broken_copy("w4dq", W4DQ_BREAK, run_broken, source="w4_dequant.cu")
+    for (label, sdt, cdt), unequal in broken.items():
+        log(f"[w4_dequant broken: q·s not rounded to bf16] {label} scales {sdt} order {cdt}: "
+            f"{unequal} weights differ | {card}")
+        if cdt == str(torch.bfloat16) and not unequal:
+            raise AssertionError(f"the broken w4_dequant passes at {label} ({sdt}, {cdt})")
+    RESULTS["w4_dequant"] = dict(rows=rows, step=step,
+                                 broken={" ".join(k): v for k, v in broken.items()})
+    return rows, step
 
 
 def check_k3_k4(card):
@@ -2899,7 +3005,8 @@ def run_serving(card):
 def dequant_ms_per_step(transformer) -> float:
     """CUDA-event milliseconds of the transient dequants one denoise step
     makes: every block linear but the cross-attention k/v (whose few rows
-    stay on K3/K4) dequantized once into bf16, in the linear's order."""
+    stay on K3/K4) dequantized once into bf16, in the linear's order, by the
+    route's own dequant (W4: the ``w4_dequant`` kernel; W8: ``dequantize``)."""
     from candle_video_tpu_torch.models.ltx_video import transformer as TF
     from candle_video_tpu_torch.ops.kernels import int4_weight_matmul as K4
     from candle_video_tpu_torch.ops.kernels import int8_weight_matmul as K3
@@ -2912,7 +3019,7 @@ def dequant_ms_per_step(transformer) -> float:
     def run():
         for lin in lins:
             if isinstance(lin, Int4Linear):
-                K4.dequantize(lin.w4, lin.w4_scale, lin.w4_min,
+                K4.w4_dequant(lin.w4, lin.w4_scale, lin.w4_min,
                               lin.w4.shape[0] * 2 // lin.w4_scale.shape[0], lin.compute_dtype)
             else:
                 K3.dequantize(lin.w_q, lin.s, lin.w_q.shape[0] // lin.s.shape[0])
@@ -2933,14 +3040,15 @@ def run_13b_dev(card, pipe, tier, distilled_step_ms):
     (every layer runs, the skips mask the STG rows), the tier's kernel 2 x
     168 for the T5 (prompt and negative) plus 2 x 48 a step for the
     cross-attention k/v at M = 3 x 128, and 8 x 48 a step of the transient
-    dequant route at M = 3 x 4992."""
+    dequant route at M = 3 x 4992 (on W4 each one ``w4_dequant`` launch)."""
     from candle_video_tpu_torch.models.ltx_video.configs import get_config_by_version
 
     layers, steps = 48, 30 if tier == "w4" else 4
     kernel, other = ("w4_matmul", "w8_matmul") if tier == "w4" else ("w8_matmul", "w4_matmul")
     want = {"flash_attention_packed": layers * steps, kernel: 2 * 168 + 2 * layers * steps,
             f"{kernel}_dequant": 8 * layers * steps, other: 0, f"{other}_dequant": 0,
-            "flash_attention_packed_long": 0}
+            "flash_attention_packed_long": 0,
+            "w4_dequant": 8 * layers * steps if tier == "w4" else 0}
     saved = pipe.config
     pipe.config = get_config_by_version("0.9.8-13b-dev")
     try:
@@ -2968,12 +3076,15 @@ def run_13b_dev(card, pipe, tier, distilled_step_ms):
 def run_13b_w4(card):
     """The 13B W4A16 path with the DiT, the Q4_K-form T5 and the VAE decoder
     all resident: K4 carries every T5 linear (24 x 7) and the DiT's
-    cross-attention k/v (48 x 2 x 7 steps); block 42 is a permanent skip,
-    computed and then masked, so every layer launches K1.  It decodes with
+    cross-attention k/v (48 x 2 x 7 steps); the other 8 block linears take
+    the transient route, one ``w4_dequant`` launch each (8 x 48 x 7); block
+    42 is a permanent skip, computed and then masked, so every layer launches
+    K1.  It decodes with
     the streamed tail in 6 chunks, as the JAX package's 13B W4 bench does."""
     pipe, gib = build_pipeline("13b-w4", card, "0.9.8-13b-distilled", dit_quant="w4",
                                t5_quant="w4")
-    want = {"w4_matmul": 168 + 672, "flash_attention_packed": 336, "w8_matmul": 0}
+    want = {"w4_matmul": 168 + 672, "flash_attention_packed": 336, "w8_matmul": 0,
+            "w4_matmul_dequant": 8 * 48 * 7, "w4_dequant": 8 * 48 * 7}
     runs = [run_request(pipe, name, prompt, 42 + i, want, card, tag="13b-w4",
                         vae_tail_stream_chunks=6)[0]
             for i, (name, prompt) in enumerate([
@@ -2992,7 +3103,7 @@ def run_13b_w8(card):
     layers = 48
     pipe, gib = build_pipeline("13b-w8", card, "0.9.8-13b-distilled", dit_quant="w8")
     want = {"w8_matmul": 168 + 14 * layers, "flash_attention_packed": 7 * layers,
-            "w4_matmul": 0}
+            "w4_matmul": 0, "w4_dequant": 0}
     row, _ = run_request(pipe, f"L'={layers} (full depth)",
                          "A fox running through tall grass", 51, want, card, tag="13b-w8")
     RESULTS["e2e_13b_w8"] = dict(resident_gib=gib, layers=layers, run=row)
@@ -4312,6 +4423,7 @@ def main(argv=None) -> int:
     k1 = phase("check_k1", check_k1, card)
     k2 = phase("check_k2", check_k2, card)
     k3, k4 = phase("check_k3_k4", check_k3_k4, card)
+    w4dq, w4dq_step = phase("check_w4_dequant", check_w4_dequant, card)
     k5 = phase("check_k5", check_k5, card)
     k7 = phase("check_k7", check_k7, card)
     k8 = phase("check_k8", check_k8, card)
@@ -4404,6 +4516,17 @@ def main(argv=None) -> int:
                           "serving 2B 97f b2": launches_serving["threefry_normal"],
                           "injected decode 2B 97f": launches_inject,
                           "svd 576x1024x14": launches_svd["threefry_normal"]}))
+    # the W4 transient dequant, the port's own kernel: no Pallas kernel (the
+    # JAX package's w4_matmul_xla leaves the dequant to XLA); its yardstick is
+    # the plain dequantize it replaced on the card
+    kernels.append(dict(
+        name="w4_dequant", route="cuda", source="candle_video_tpu_torch/csrc/w4_dequant.cu",
+        replaces="candle_video_tpu/ops/pallas/int4_weight_matmul.py w4_matmul_xla (XLA)",
+        launches=launches_13b["w4_dequant"], max_abs_err=0.0, ms=w4dq[0]["ms"],
+        plain_ms=w4dq[0]["plain_ms"], bound_ms=w4dq[0]["bound_ms"],
+        bound_by=w4dq[0]["bound_by"], library_ms=None, kernel_ms=w4dq[0]["kernel_ms"],
+        step=w4dq_step, launches_by_path={"13b w4 97f": launches_13b["w4_dequant"],
+                                          "13b-dev": launches_dev_w4["w4_dequant"]}))
     RESULTS.update(card=card, kernels=kernels)
     log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in RESULTS["phase_s"].items()))
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -143,10 +143,10 @@ def test_kernel_library_is_keyed_on_sources():
     assert path.parent.parent == _build.BUILD_DIR
     assert {p.name for p in _build._sources()} == {
         "flash_attention_hopper.cu", "weight_only_matmul_hopper.cu", "int8_matmul.cu",
-        "conv3d_igemm.cu", "threefry_normal.cu"}
+        "conv3d_igemm.cu", "threefry_normal.cu", "w4_dequant.cu"}
     assert {"cvt_w8a8_matmul", "cvt_conv3d_igemm", "cvt_flash_attention", "cvt_w8_matmul",
             "cvt_w4_matmul", "cvt_weight_only_max_clusters",
-            "cvt_threefry_normal"} <= set(_build._SIGNATURES)
+            "cvt_threefry_normal", "cvt_w4_dequant"} <= set(_build._SIGNATURES)
 
 
 def test_patched_library_builds_from_an_edited_copy_and_restores(tmp_path):

@@ -126,8 +126,72 @@ def test_launch_counter_stays_zero_on_cpu(rng):
     _, (tp, ts, tm) = _weights(rng, 64, 32, "f32")
     K4.w4_matmul(torch.ones(4, 64), tp, ts, tm)
     K4.w4_matmul_auto(torch.ones(4, 64), tp, ts, tm)
+    K4.w4_matmul_auto(torch.ones(K4.W4_XLA_MIN_M, 64), tp, ts, tm,
+                      compute_dtype=torch.bfloat16)
+    K4.w4_dequant(tp, ts, tm, 32, torch.bfloat16)
     assert _build.LAUNCHES[K4.NAME] == 0
+    assert _build.LAUNCHES[K4.DEQUANT_KERNEL] == 0
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("qb", [32, 48])
+@pytest.mark.parametrize("scale", ["f32", "bf16"])
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_w4_dequant_on_cpu_tensors_is_the_plain_dequantize(rng, compute, scale, qb):
+    """The transient route's dequant takes the plain version on the CPU, in
+    both orders, with either scale dtype, at a qblock K4 takes and at one
+    it refuses (the fallback's)."""
+    k, n = 4 * qb, 72  # N a multiple of 8, not of 16
+    tp, ts, tm = K4.quantize_int4_blockwise(rng.normal(size=(k, n)).astype(np.float32) * 0.05,
+                                            qb, SCALE_DTYPES[scale][1])
+    got = K4.w4_dequant(tp, ts, tm, qb, compute)
+    assert got.dtype == torch.bfloat16 and got.shape == (k, n)
+    assert torch.equal(got, K4.dequantize(tp, ts, tm, qb, compute))
+
+
+def _dequant_operands(k=128, n=32, qb=32, scale_dtype=torch.bfloat16):
+    return (torch.zeros(k // 2, n, dtype=torch.uint8), torch.zeros(k // qb, n, dtype=scale_dtype),
+            torch.zeros(k // qb, n, dtype=scale_dtype))
+
+
+def _unaligned(t):
+    """``t``'s values in a tensor whose data starts 2 bytes past a 16-byte
+    boundary."""
+    flat = torch.zeros(t.numel() * t.element_size() + 16, dtype=torch.uint8)
+    off = (-flat.data_ptr() + 2) % 16
+    return flat[off:off + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+
+
+DEQUANT_REFUSALS = {
+    "int8 codes": (TypeError, lambda w, s, m: (w.to(torch.int8), s, m, 32, torch.bfloat16)),
+    "f16 scales": (TypeError, lambda w, s, m: (w, s.half(), m.half(), 32, torch.bfloat16)),
+    "s and m apart": (TypeError, lambda w, s, m: (w, s.float(), m, 32, torch.bfloat16)),
+    "f16 compute": (TypeError, lambda w, s, m: (w, s, m, 32, torch.float16)),
+    "N % 8": (ValueError, lambda w, s, m: (w[:, :12].contiguous(), s[:, :12].contiguous(),
+                                           m[:, :12].contiguous(), 32, torch.bfloat16)),
+    "s rows": (ValueError, lambda w, s, m: (w, s[:2].contiguous(), m[:2].contiguous(), 32,
+                                            torch.bfloat16)),
+    "1-D codes": (ValueError, lambda w, s, m: (w.reshape(-1), s, m, 32, torch.bfloat16)),
+    "K % (2*qblock)": (ValueError, lambda w, s, m: (w[:48].contiguous(), s[:3].contiguous(),
+                                                    m[:3].contiguous(), 32, torch.bfloat16)),
+    "non-contiguous": (ValueError, lambda w, s, m: (w.t().contiguous().t(), s, m, 32,
+                                                    torch.bfloat16)),
+    "unaligned codes": (ValueError, lambda w, s, m: (_unaligned(w), s, m, 32, torch.bfloat16)),
+    "unaligned min": (ValueError, lambda w, s, m: (w, s, _unaligned(m), 32, torch.bfloat16)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEQUANT_REFUSALS))
+def test_w4_dequant_checks_reject_what_the_kernel_does_not_take(case):
+    """The card's wrapper raises, before any launch, on what the kernel does
+    not take; a CPU tensor that passes every other check fails the device
+    check last."""
+    err, make = DEQUANT_REFUSALS[case]
+    args = make(*_dequant_operands())
+    with pytest.raises(err, match=K4.DEQUANT_KERNEL):
+        K4._check_dequant(*args)
+    with pytest.raises(ValueError, match="on one CUDA device, not cpu"):
+        K4._check_dequant(*_dequant_operands(), 32, torch.bfloat16)
 
 
 def test_wrapper_checks_reject_what_the_kernel_does_not_take():
@@ -326,6 +390,7 @@ def test_k4_on_the_card_routes_by_qblock_before_any_launch(monkeypatch, qb):
     w_p = torch.empty(k // 2, n, dtype=torch.uint8, device="meta")
     s = torch.empty(k // qb, n, dtype=torch.bfloat16, device="meta")
     lib, _ = stub_card(monkeypatch, K4)
+    monkeypatch.setattr(K4, "_check_dequant", lambda *a: None)
     for call in (K4.w4_matmul, K4.w4_matmul_auto):
         y = call(x, w_p, s, s, qblock=qb)
         assert y.shape == (m, n) and y.device.type == "meta"
@@ -333,6 +398,33 @@ def test_k4_on_the_card_routes_by_qblock_before_any_launch(monkeypatch, qb):
     assert K4.qblock_ok(qb) == kernel
     assert len(lib.calls) == _build.LAUNCHES[K4.NAME] == 2 * kernel
     assert _build.LAUNCHES[K4.DEQUANT_NAME] == 2 * (not kernel)
+    # the route's dequant is one launch of its kernel, in the kernel's f32 order
+    assert len(lib.dequant_calls) == _build.LAUNCHES[K4.DEQUANT_KERNEL] == 2 * (not kernel)
+    assert all(c[6:9] == (qb, 1, 0) for c in lib.dequant_calls)
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_transient_route_launches_the_dequant_kernel_once(monkeypatch, compute, scale_dtype):
+    """From ``W4_XLA_MIN_M`` rows on, a call on the card is one dequant
+    launch into the [K, N] bf16 weight (its only allocation before the
+    matmul), counted beside the route: the scale dtype and the order by
+    flag, no K4 launch."""
+    m, k, n, qb = K4.W4_XLA_MIN_M, 4096, 16392, 32
+    x = torch.empty(m, k, dtype=torch.bfloat16, device="meta")
+    w_p = torch.empty(k // 2, n, dtype=torch.uint8, device="meta")
+    s = torch.empty(k // qb, n, dtype=scale_dtype, device="meta")
+    lib, allocs = stub_card(monkeypatch, K4)
+    monkeypatch.setattr(K4, "_check_dequant", lambda *a: None)
+    y = K4.w4_matmul_auto(x, w_p, s, s, qblock=qb, compute_dtype=compute)
+    assert y.shape == (m, n) and y.device.type == "meta"
+    assert allocs[0] == ((k, n),)
+    assert lib.calls == [] and _build.LAUNCHES[K4.NAME] == 0
+    assert _build.LAUNCHES[K4.DEQUANT_KERNEL] == _build.LAUNCHES[K4.DEQUANT_NAME] == 1
+    (call,) = lib.dequant_calls
+    assert len(call) == len(_build._SIGNATURES["cvt_w4_dequant"])
+    assert call[4:] == (k, n, qb, int(scale_dtype == torch.bfloat16),
+                        int(compute == torch.bfloat16), 7)
 
 
 @pytest.mark.parametrize("qb", [8, 48, 96])

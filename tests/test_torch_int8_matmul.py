@@ -347,12 +347,17 @@ class _Lib:
 
     def __init__(self):
         self.calls = []
+        self.dequant_calls = []
 
     def cvt_w8_matmul(self, *args):
         self.calls.append(args)
         return 0
 
     cvt_w4_matmul = cvt_w8_matmul
+
+    def cvt_w4_dequant(self, *args):
+        self.dequant_calls.append(args)
+        return 0
 
 
 def stub_card(monkeypatch, module):
