@@ -8,10 +8,11 @@ never by the benchmark's own runs.
 ``readings``: for each seed, one run of the cell as ``run.py`` makes it
 (``run.measure``, with a window of the given seconds) and its check
 (``run.check``): the program's readings.  On the control seeds the same
-requests again with the reference in float8 in the program's place
-(``run.check(control="fp8")``: every DiT block linear and VAE conv; the
-latents, taken before the decode, have the DiT's linears alone in float8).
-One JSON line a seed.  ``sweep``: the open mix at each offered rate for the
+requests again with the family's reference at its control precision in the
+program's place (``run.check(control=<the family's CONTROL>)``, under that
+name; LTX-Video's ``fp8`` is float8 in every DiT block linear and VAE conv,
+so that its latents, taken before the decode, have the DiT's linears alone
+in float8).  One JSON line a seed.  ``sweep``: the open mix at each offered rate for the
 given seconds on one warm pipeline: completed videos a minute, the p95
 sojourn, and the mean sojourn of the first and the last third of the
 requests (a growing backlog shows as the last third waiting longer).
@@ -37,20 +38,21 @@ def readings(args, cell, config, mix):
         line = {"seed": seed, "requests": len(ctx.requests), "program": run.check(ctx, mix),
                 "measure_s": t1 - t0, "check_s": time.perf_counter() - t1}
         if seed in args.control_seeds:
-            line["fp8"] = run.check(ctx, mix, control="fp8")
+            control = run.family(config).CONTROL
+            line[control] = run.check(ctx, mix, control=control)
         del ctx
         torch.cuda.empty_cache()
         print(json.dumps(line), flush=True)
 
 
 def sweep(args, cell, config, mix):
-    from portbench import program, traffic, weights
     from portbench.arith import percentile
 
+    fam = run.family(config, mix["mode"])
     ctx = run.Context(cell=cell, config=config, mix=mix, seed=args.seeds[0],
                       phases=run.Phases(), traced=False, device=torch.device("cuda"))
-    pipe = program.build(config, weights.make(config, ctx.seed, "cuda"), traffic.IdTokenizer(),
-                         "cuda")
+    pipe = fam.build(config, fam.make_weights(config, ctx.seed, "cuda"), "cuda",
+                     lambda phase: None)
     for rate in args.rates:
         m = dict(mix, rate_per_min=rate)
         run.open_loop(ctx, pipe, m, args.seconds, False)

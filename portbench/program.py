@@ -1,9 +1,9 @@
 """The program under test, assembled from the benchmark's raw weights.
 
-This file and ``run.py`` are the benchmark's only contact with the port
-(``candle_video_tpu_torch``): its configuration dataclasses, its checkpoint
-loaders and quantized-linear modules, ``pipeline.generate`` and the
-serving runtime.  The port derives whatever it keeps (copies, layouts, packed
+This file is the LTX-Video family's contact with the port
+(``candle_video_tpu_torch``), reached through ``families/ltx_video.py``:
+its configuration dataclasses, its checkpoint loaders and quantized-linear
+modules, ``pipeline.generate`` and the serving runtime.  The port derives whatever it keeps (copies, layouts, packed
 forms) from the tensors handed to it here.
 """
 

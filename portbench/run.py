@@ -6,14 +6,17 @@ The cell (``BENCHMARK.json``'s ``workloads``) names a configuration
 (``portbench/configs/<config>.json``) and a traffic mix
 (``portbench/traffic/<mix>.json``); its limits for ``correct`` are in
 ``portbench/limits/<cell>.json`` and each per-layer metric's reader in
-``portbench/metrics/<metric>.py``.  A run makes the weights from the seed on
-the card, hands them to the program, warms the cell's shapes, measures for
-the given seconds (traced with ``--trace 1``), then frees the program and
-checks a sample of the requests it served against the plain reference
-(``reference/ltx.py``): their final latents, before the decode, and their
-videos.  Set-up by phase and the numbers compared, each
-beside its limit, go to standard error; the last line of standard output
-is the result.
+``portbench/metrics/<metric>.py``.  The configuration names its model family
+(``"family"``, by default ``ltx_video``), whose module
+``portbench/families/<family>.py`` makes the weights, builds the program,
+sends one request and gives the plain reference; this file knows no model.
+A run makes the weights from the seed on the card, hands them to the
+program, warms the cell's shapes, measures for the given seconds (traced
+with ``--trace 1``), then frees the program and checks a sample of the
+requests it served against the family's reference: their final latents,
+before the decode, and their videos.  Set-up by phase and the numbers
+compared, each beside its limit, go to standard error; the last line of
+standard output is the result.
 """
 
 import time
@@ -36,6 +39,8 @@ ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "candle_video_tpu", "benches", "bench", "scripts")
 WARM_INDEX = 10 ** 6  # the request index of the warm-up, past any window's
+FAMILIES = HERE / "families"
+DEFAULT_FAMILY = "ltx_video"  # a configuration file without "family"
 
 
 def fail(msg: str, code: int = 2):
@@ -71,6 +76,30 @@ def load_cell(name: str):
     e2e = [m for m in bench["end_to_end"] if name in m.get("workloads", [name])]
     layer = [m for m in bench["per_layer"] if name in m.get("workloads", [name])]
     return bench, cell, config, mix, limits, e2e, layer
+
+
+def family(config: dict, mode: str | None = None):
+    """The family module ``<FAMILIES>/<family>.py`` that ``config`` names,
+    loaded by path once; with ``mode``, a traffic mode it has to serve."""
+    name = config.get("family", DEFAULT_FAMILY)
+    path = FAMILIES / f"{name}.py"
+    key = f"portbench.families.{name}"
+    mod = sys.modules.get(key)
+    if mod is None or Path(mod.__file__).resolve() != path.resolve():
+        if not (isinstance(name, str) and name.isidentifier() and path.is_file()):
+            fail(f"no family module {str(path)!r} for the family {name!r} of configuration "
+                 f"{config.get('name')!r}")
+        spec = importlib.util.spec_from_file_location(key, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[key]
+            raise
+    if mode is not None and mode not in mod.MODES:
+        fail(f"the family {name!r} serves the modes {list(mod.MODES)}, not the mix's {mode!r}")
+    return mod
 
 
 class Phases:
@@ -185,19 +214,12 @@ def closed_loop(ctx, pipe, mix, seconds, traced):
     metrics) and the profiler records the second half (the device metrics)."""
     from portbench import trace as T
     from portbench import traffic
-    from portbench.program import generate
 
-    vocab = ctx.config["t5"]["vocab_size"]
-    shape = dict(height=mix["height"], width=mix["width"], num_frames=mix["num_frames"])
+    fam = family(ctx.config)
 
     def request(i, stage_times=None):
-        seed = traffic.request_seed(ctx.seed, i)
         tap.first = i
-        video = generate(pipe, prompt=traffic.prompt(ctx.seed, i, mix["prompt_tokens"], vocab),
-                         seed=seed, max_sequence_length=mix["prompt_tokens"],
-                         stage_times=stage_times, step_callback=tap, **shape)
-        host.take(i, video)
-        return seed
+        host.take(i, fam.request(pipe, ctx.config, mix, ctx.seed, i, stage_times, tap))
 
     # warm-up: the cell's one shape, a prompt no window request has; the
     # check's sample is drawn from the seconds / its time requests that a
@@ -221,15 +243,14 @@ def closed_loop(ctx, pipe, mix, seconds, traced):
                 win.start()
             st = {} if traced and win.started_at is None else None
             a = time.perf_counter()
-            seed = request(len(done), st)
-            done.append(dict(index=len(done), start=a, end=time.perf_counter(), seed=seed,
-                             stages=st))
+            request(len(done), st)
+            done.append(dict(index=len(done), start=a, end=time.perf_counter(), stages=st))
     ctx.peak = read_peak(ctx.device)
     for i in sorted(host.keep):
         if i >= len(done):
             request(i)
-    ctx.sample = [dict(index=i, seed=traffic.request_seed(ctx.seed, i), video=host.kept[i],
-                       latents=tap.kept[i]) for i in sorted(host.keep)]
+    ctx.sample = [dict(index=i, video=host.kept[i], latents=tap.kept[i])
+                  for i in sorted(host.keep)]
     ctx.window = (t0, done[-1]["end"])
     ctx.latency = [r["end"] - r["start"] for r in done]
     ctx.requests = done
@@ -261,51 +282,25 @@ class _LogTap:
         return getattr(self.inner, name)
 
 
-def open_requests(ctx, mix, n):
-    """What the open mix's first n requests carry, from the run's seed:
-    prompt embeddings [n, 1, L, caption] bf16 (the embedding cache's
-    output), masks [n, 1, L] with seeded valid lengths, generation seeds."""
-    import torch
-
-    from portbench import traffic
-
-    cap_tokens = mix["embed_tokens"]
-    cap = ctx.config["transformer"]["caption_channels"]
-    g = torch.Generator(device=ctx.device).manual_seed(traffic.request_seed(ctx.seed, WARM_INDEX))
-    embeds = torch.randn(n, 1, cap_tokens, cap, generator=g, device=ctx.device,
-                         dtype=torch.bfloat16)
-    lengths = traffic.mask_lengths(ctx.seed, n, mix["min_mask_tokens"], cap_tokens)
-    masks = (torch.arange(cap_tokens, device=ctx.device)[None, None, :]
-             < torch.as_tensor(lengths, device=ctx.device)[:, None, None]).float()
-    return embeds, masks, [traffic.request_seed(ctx.seed, i) for i in range(n)]
-
-
 def open_loop(ctx, pipe, mix, seconds, traced):
-    """Requests fall due on the mix's fixed schedule; the server batches
-    them.  Each sojourn runs from the request's due time to its video in
-    host memory."""
+    """Requests fall due on the mix's fixed schedule; the family's server
+    batches them.  Each sojourn runs from the request's due time to its
+    video in host memory."""
     import numpy as np
-    import torch
 
     from portbench import trace as T
     from portbench import traffic
-    from portbench.program import Request, ShapeBucket, VideoGenerationServer
 
     dev = ctx.device
     due = traffic.arrivals(mix, seconds)
     n = len(due)
-    embeds, masks, seeds = open_requests(ctx, mix, n + 1)  # the last one warms up
-    bucket = ShapeBucket(mix["height"], mix["width"], mix["num_frames"],
-                         ctx.config["inference"]["num_inference_steps"])
     # the check's sample: the videos of the first check_requests drawn, the
     # final latents of the first latent_candidates drawn (the batched rows
     # among them are checked too)
     drawn = traffic.sample(ctx.seed, n, mix["latent_candidates"])
     tap = LatentTap(drawn)
-    server = VideoGenerationServer(pipe, [bucket], max_batch=mix["max_batch"],
-                                   vae_tail_stream_chunks=mix["tail_stream_chunks"],
-                                   step_callback=tap)
-    server.warmup(embeds[n], masks[n])
+    server = family(ctx.config).Served(pipe, ctx.config, mix, ctx.seed, n, dev, tap, WARM_INDEX)
+    server.warmup()
     tap.armed = True
     host = HostVideos(mix, dev, drawn[:mix["check_requests"]])
     win = T.Window(traced)
@@ -347,9 +342,7 @@ def open_loop(ctx, pipe, mix, seconds, traced):
             if traced and d >= seconds / 2:
                 win.start()
             submitted[i] = time.perf_counter()
-            outs.append(server.submit(Request(prompt_embeds=embeds[i],
-                                              prompt_attention_mask=masks[i],
-                                              bucket=bucket, seed=seeds[i])))
+            outs.append(server.submit(i))
         collector.join(timeout=max(0.0, t_deadline[0] - time.perf_counter()) + 5.0)
     if traced:
         sys.stderr = log_tap.inner
@@ -375,9 +368,9 @@ def open_loop(ctx, pipe, mix, seconds, traced):
     # more that rode a batch, in the order drawn
     batched = [i for i in drawn[mix["check_requests"]:] if tap.rows.get(i, 1) > 1]
     checked = set(host.kept) | set(batched[:mix["check_batched"]])
-    ctx.requests = [dict(index=i, seed=seeds[i]) for i in ok]
-    ctx.sample = [dict(index=i, seed=seeds[i], video=host.kept.get(i), latents=tap.kept.get(i),
-                       rows=tap.rows.get(i), embeds=embeds[i], mask=masks[i])
+    ctx.requests = [dict(index=i) for i in ok]
+    ctx.sample = [dict(index=i, video=host.kept.get(i), latents=tap.kept.get(i),
+                       rows=tap.rows.get(i), **server.carried(i))
                   for i in ok if i in checked]
     if traced:
         # the served calls, from the serving layer's log line: (start, end,
@@ -407,47 +400,31 @@ def open_loop(ctx, pipe, mix, seconds, traced):
 
 
 def check(ctx, mix, control=None):
-    """The sampled requests against the reference, with the program freed:
-    each one's final latents and, where its video was kept, its video.
-    With ``control`` (a ``reference.ltx.Precision`` mode), the reference at
-    that precision stands in the program's place: the control's readings."""
-    import torch
-
-    from portbench import traffic, weights
-    from portbench.reference import ltx as REF
-
-    picked = ctx.sample
-    dev = ctx.device
-    raw = weights.make(ctx.config, ctx.seed, dev,
-                       parts=("dit", "vae") if "embeds" in picked[0] else ("dit", "vae", "t5"))
-    tok = traffic.IdTokenizer()
-    vocab = ctx.config["t5"]["vocab_size"]
+    """The sampled requests against the family's reference, with the
+    program freed: each one's final latents and, where its video was kept,
+    its video.  With ``control`` (the family's ``CONTROL``), the reference
+    at that precision stands in the program's place: the control's
+    readings."""
+    fam = family(ctx.config)
+    config, seed, dev = ctx.config, ctx.seed, ctx.device
+    raw = fam.reference_weights(config, seed, dev, mix)
     worst = {}
-    for r in picked:
-        shape = dict(seed=r["seed"], height=mix["height"], width=mix["width"],
-                     num_frames=mix["num_frames"], device=dev)
-        if "embeds" in r:
-            text = dict(embeds=r["embeds"].float(), mask=r["mask"].float())
-        else:
-            ids, mask = tok.encode_batch([traffic.prompt(ctx.seed, r["index"],
-                                                         mix["prompt_tokens"], vocab)],
-                                         mix["prompt_tokens"])
-            text = dict(ids=torch.from_numpy(ids).long().to(dev),
-                        mask=torch.from_numpy(mask).float().to(dev))
-        ref_lat, noise = REF.denoise(raw, ctx.config, **text, **shape)
+    for r in ctx.sample:
+        ref_lat, noise = fam.reference_latents(raw, config, mix, seed, r, dev)
         if control is None:
             lat, video = r.get("latents"), r.get("video")
         else:
-            prec = REF.Precision(control)
-            lat = REF.denoise(raw, ctx.config, prec=prec, **text, **shape)[0][0]
-            video = to_host_u8(REF.decode(raw, ctx.config, lat[None], prec=prec, **shape)[None])
+            lat = fam.reference_latents(raw, config, mix, seed, r, dev, control)[0]
+            video = to_host_u8(fam.reference_video(raw, config, mix, seed, r, lat, dev,
+                                                   control)[None])
         errors = {"latent_rel_rms": latent_error(lat, ref_lat, noise)}
         if video is not None:
-            errors.update(video_errors(video, REF.decode(raw, ctx.config, ref_lat, **shape)))
+            errors.update(video_errors(video, fam.reference_video(raw, config, mix, seed, r,
+                                                                  ref_lat, dev)))
         for name, v in errors.items():
             worst[name] = max(worst.get(name, 0.0), v)
-    worst["requests_checked"] = len(picked)
-    worst["batched_rows_checked"] = sum(1 for r in picked if (r.get("rows") or 1) > 1)
+    worst["requests_checked"] = len(ctx.sample)
+    worst["batched_rows_checked"] = sum(1 for r in ctx.sample if (r.get("rows") or 1) > 1)
     return worst
 
 
@@ -517,16 +494,14 @@ def measure(cell, config, mix, seed, seconds, traced, device, phases):
     is freed before this returns.  Returns the run's ``Context``."""
     import torch
 
-    from portbench import program, traffic, weights
-
+    fam = family(config, mix["mode"])
     device = torch.device(device)
     ctx = Context(cell=cell, config=config, mix=mix, seed=seed, phases=phases,
                   traced=traced, device=device)
-    raw = weights.make(config, seed, device)
+    raw = fam.make_weights(config, seed, device)
     sync(device)
     phases.done("weights")
-    pipe = program.build(config, raw, traffic.IdTokenizer(), device,
-                         lambda name: (sync(device), phases.done(name)))
+    pipe = fam.build(config, raw, device, lambda name: (sync(device), phases.done(name)))
     del raw
     window = {"closed": closed_loop, "open": open_loop}[mix["mode"]]
     window(ctx, pipe, mix, seconds, traced)
@@ -562,7 +537,8 @@ def result_of(ctx, limits, e2e, layer):
             metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     got = check(ctx, ctx.mix)
     print(f"portbench: checked {got['requests_checked']} requests, "
-          f"{got['batched_rows_checked']} of them rows of a batch", file=sys.stderr)
+          f"{got['batched_rows_checked']} of them rows of a batch; indices "
+          f"{[r['index'] for r in ctx.sample]}", file=sys.stderr)
     for k in ("latent_rel_rms", "rel_rms", "frame_rel_rms"):
         if k not in limits["compared"]:
             print(f"portbench: reading {k} = {got[k]!r} (not compared)", file=sys.stderr)
@@ -610,7 +586,7 @@ def main(argv=None):
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
         fail(f"the cell needs {cell['chips']} CUDA device(s); "
              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} found")
-    import portbench.program  # noqa: F401  (the port's import, timed as its own phase)
+    family(config, mix["mode"])  # the port's import, timed as its own phase
 
     phases.done("imports")
     torch.ones(1, device="cuda")

@@ -185,7 +185,7 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         R.fail("span_split needs a CUDA device")
-    import portbench.program  # noqa: F401
+    R.family(config, mix["mode"])
 
     torch.ones(1, device="cuda")
     seed = args.seed % (1 << 63)

@@ -24,7 +24,6 @@ def test_control_fails_where_the_program_passes(card):
     lines = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
     assert len(lines) == len(SEEDS)
     for line in lines:
-        for got in line["program"]:
-            assert all(got[k] <= limits[k] for k in limits["compared"])
-        for got in line["fp8"]:
-            assert any(got[k] > limits[k] for k in limits["compared"])
+        got, control = line["program"], line["fp8"]
+        assert all(got[k] <= limits[k] for k in limits["compared"]), line
+        assert any(control[k] > limits[k] for k in limits["compared"]), line

@@ -90,3 +90,21 @@ def test_no_reduced_key_is_a_width():
                        r"channels|d_model|d_ff|d_kv)")
     for c in BENCH["configs"]:
         assert not [k for k in c["reduced"] if width.search(k)]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_family_serves_its_mode(cell):
+    """The configuration's family module is found by name and serves the
+    mode of the cell's mix."""
+    from portbench import run
+
+    w = {c["name"]: c for c in BENCH["workloads"]}[cell]
+    config = json.loads((ROOT / "portbench" / "configs" / f"{w['config']}.json").read_text())
+    mix = json.loads((ROOT / "portbench" / "traffic" / f"{w['traffic']}.json").read_text())
+    name = config.get("family", run.DEFAULT_FAMILY)
+    assert (ROOT / "portbench" / "families" / f"{name}.py").is_file()
+    fam = run.family(config, mix["mode"])
+    for fn in ("make_weights", "build", "request", "reference_weights", "reference_latents",
+               "reference_video"):
+        assert callable(getattr(fam, fn))
+    assert mix["mode"] != "open" or callable(fam.Served)

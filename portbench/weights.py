@@ -199,15 +199,22 @@ def _make_part(spec: Spec, g: torch.Generator, device) -> Dict[str, torch.Tensor
     return out
 
 
-def make(config: dict, seed: int, device, parts=("dit", "vae", "t5")) -> Dict[str, torch.Tensor]:
-    """The raw weights of ``config``'s ``parts`` on ``device``: each part
-    from its own generator, so a part is the same for the same seed whatever
-    other parts are made."""
+def make_from(table: dict, config: dict, seed: int, device, parts) -> Dict[str, torch.Tensor]:
+    """The raw weights of ``config``'s ``parts`` on ``device``, where
+    ``table`` maps each part a family has, in a fixed order, to the function
+    that fills its ``Spec`` from the configuration.  Each part comes from
+    its own generator, keyed by the seed and the part's place in ``table``,
+    so a part is the same for the same seed whatever other parts are made."""
     out: Dict[str, torch.Tensor] = {}
     for part in parts:
         spec = Spec()
-        _PARTS[part](spec, config)
-        key = np.random.SeedSequence([int(seed), list(_PARTS).index(part)])
+        table[part](spec, config)
+        key = np.random.SeedSequence([int(seed), list(table).index(part)])
         g = torch.Generator(device=device).manual_seed(int(key.generate_state(1, np.uint64)[0]))
         out.update(_make_part(spec, g, device))
     return out
+
+
+def make(config: dict, seed: int, device, parts=tuple(_PARTS)) -> Dict[str, torch.Tensor]:
+    """LTX-Video's raw weights (``dit``, ``vae``, ``t5``): ``make_from``."""
+    return make_from(_PARTS, config, seed, device, parts)
