@@ -19,6 +19,12 @@ self-attention (5 heads of 64, not lane-packable) takes K6, levels 1 and 2
 (10 and 20 heads, more than 512 tokens) take K1, and the temporal (14
 frames), cross (1 token) and mid-block (144 tokens) attention the plain
 path.
+
+While ``utils.debug`` records spans, each spatio-temporal resnet is a
+``resnet`` span holding a ``temporal`` one around its temporal block, each
+spatial transformer block opens ``attn1``, ``attn2`` and ``ff``, each temporal
+transformer block is a ``temporal`` span, and every linear and conv a
+``matmul`` or ``conv`` leaf (``linear``, ``conv2d``, ``temporal_conv``).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from ...ops.activations import gelu, silu
 from ...ops.attention import attention
 from ...ops.embeddings import sinusoidal_timestep_embedding
 from ...ops.norms import group_norm, layer_norm
+from ...utils import debug
 from .configs import SvdUnetConfig
 
 
@@ -56,9 +63,26 @@ class LayerNorm(nn.LayerNorm):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+def linear(lin: nn.Linear, x):
+    """``lin(x)``; while spans are recorded, the product is a ``matmul``
+    span.  The flag is tested here first: off, that is all it costs."""
+    if debug.RECORDING:
+        with debug.span("matmul"):
+            return lin(x)
+    return lin(x)
+
+
+def _conv(conv, x):
+    """``conv(x)``; while spans are recorded, a ``conv`` span."""
+    if debug.RECORDING:
+        with debug.span("conv"):
+            return conv(x)
+    return conv(x)
+
+
 def conv2d(conv: nn.Conv2d, x):
     """``conv`` on x cast to the weight's dtype."""
-    return conv(x.to(conv.weight.dtype))
+    return _conv(conv, x.to(conv.weight.dtype))
 
 
 def temporal_conv(conv: nn.Conv3d, x, num_frames: int):
@@ -67,7 +91,7 @@ def temporal_conv(conv: nn.Conv3d, x, num_frames: int):
     bt, c, hgt, wid = x.shape
     b = bt // num_frames
     x5 = x.to(conv.weight.dtype).reshape(b, num_frames, c, hgt, wid).transpose(1, 2)
-    out = conv(x5).transpose(1, 2)
+    out = _conv(conv, x5).transpose(1, 2)
     return out.reshape(bt, -1, hgt, wid).to(x.dtype)
 
 
@@ -78,7 +102,7 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = nn.Linear(d, d_out or d, dtype=dtype)
 
     def forward(self, x):
-        return self.linear_2(silu(self.linear_1(x)))
+        return linear(self.linear_2, silu(linear(self.linear_1, x)))
 
 
 class ResnetBlock2D(nn.Module):
@@ -100,7 +124,7 @@ class ResnetBlock2D(nn.Module):
     def forward(self, x, temb=None):
         h = conv2d(self.conv1, silu(self.norm1(x)))
         if temb is not None and self.time_emb_proj is not None:
-            h = h + self.time_emb_proj(silu(temb))[:, :, None, None]
+            h = h + linear(self.time_emb_proj, silu(temb))[:, :, None, None]
         h = conv2d(self.conv2, silu(self.norm2(h)))
         res = x if self.conv_shortcut is None else conv2d(self.conv_shortcut, x)
         return h + res
@@ -121,7 +145,7 @@ class TemporalResnetBlock(nn.Module):
     def forward(self, x, temb, num_frames: int):
         h = temporal_conv(self.conv1, silu(self.norm1(x)), num_frames)
         if temb is not None and self.time_emb_proj is not None:
-            h = h + self.time_emb_proj(silu(temb))[:, :, None, None]
+            h = h + linear(self.time_emb_proj, silu(temb))[:, :, None, None]
         h = temporal_conv(self.conv2, silu(self.norm2(h)), num_frames)
         return h + x
 
@@ -151,9 +175,11 @@ class SpatioTemporalResBlock(nn.Module):
         self.time_mixer = AlphaBlender()
 
     def forward(self, x, temb, num_frames: int):
-        hs = self.spatial_res_block(x, temb)
-        ht = self.temporal_res_block(hs, temb, num_frames)
-        return self.time_mixer(hs, ht)
+        with debug.span("resnet"):
+            hs = self.spatial_res_block(x, temb)
+            with debug.span("temporal"):
+                ht = self.temporal_res_block(hs, temb, num_frames)
+            return self.time_mixer(hs, ht)
 
 
 class Attention(nn.Module):
@@ -173,11 +199,11 @@ class Attention(nn.Module):
         b, s, d = x.shape
         ctx = x if context is None else context
         h, hd = self.heads, d // self.heads
-        q = self.to_q(x).reshape(b, s, h, hd)
-        k = self.to_k(ctx).reshape(b, ctx.shape[1], h, hd)
-        v = self.to_v(ctx).reshape(b, ctx.shape[1], h, hd)
+        q = linear(self.to_q, x).reshape(b, s, h, hd)
+        k = linear(self.to_k, ctx).reshape(b, ctx.shape[1], h, hd)
+        v = linear(self.to_v, ctx).reshape(b, ctx.shape[1], h, hd)
         out = attention(q, k, v, 1.0 / math.sqrt(hd))
-        return self.to_out[0](out.reshape(b, s, d))
+        return linear(self.to_out[0], out.reshape(b, s, d))
 
 
 class GEGLU(nn.Module):
@@ -186,7 +212,7 @@ class GEGLU(nn.Module):
         self.proj = nn.Linear(d_in, 2 * d_out, dtype=dtype)
 
     def forward(self, x):
-        gate, value = self.proj(x).chunk(2, dim=-1)
+        gate, value = linear(self.proj, x).chunk(2, dim=-1)
         return gelu(gate) * value
 
 
@@ -199,7 +225,7 @@ class FeedForward(nn.Module):
                                   nn.Linear(4 * dim, dim, dtype=dtype)])
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        return linear(self.net[2], self.net[0](x))
 
 
 class BasicTransformerBlock(nn.Module):
@@ -213,9 +239,12 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim, dtype)
 
     def forward(self, x, context):
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+        with debug.span("attn1"):
+            x = x + self.attn1(self.norm1(x))
+        with debug.span("attn2"):
+            x = x + self.attn2(self.norm2(x), context)
+        with debug.span("ff"):
+            return x + self.ff(self.norm3(x))
 
 
 class TemporalBasicTransformerBlock(nn.Module):
@@ -235,12 +264,13 @@ class TemporalBasicTransformerBlock(nn.Module):
     def forward(self, x, time_context, num_frames: int):
         bt, s, d = x.shape
         b = bt // num_frames
-        h = x.reshape(b, num_frames, s, d).transpose(1, 2).reshape(b * s, num_frames, d)
-        h = h + self.ff_in(self.norm_in(h))
-        h = h + self.attn1(self.norm1(h))
-        h = h + self.attn2(self.norm2(h), time_context)
-        h = h + self.ff(self.norm3(h))
-        return h.reshape(b, s, num_frames, d).transpose(1, 2).reshape(bt, s, d)
+        with debug.span("temporal"):
+            h = x.reshape(b, num_frames, s, d).transpose(1, 2).reshape(b * s, num_frames, d)
+            h = h + self.ff_in(self.norm_in(h))
+            h = h + self.attn1(self.norm1(h))
+            h = h + self.attn2(self.norm2(h), time_context)
+            h = h + self.ff(self.norm3(h))
+            return h.reshape(b, s, num_frames, d).transpose(1, 2).reshape(bt, s, d)
 
 
 class TransformerSpatioTemporalModel(nn.Module):
@@ -271,7 +301,7 @@ class TransformerSpatioTemporalModel(nn.Module):
                 b * hgt * wid, -1, d)
 
         h = self.norm(x).reshape(bt, c, hgt * wid).transpose(1, 2)
-        h = self.proj_in(h)
+        h = linear(self.proj_in, h)
 
         frame_idx = torch.arange(num_frames, dtype=torch.float32, device=x.device).repeat(b)
         emb = self.time_pos_embed(timestep_embedding(frame_idx, c).to(h.dtype))[:, None, :]
@@ -281,7 +311,7 @@ class TransformerSpatioTemporalModel(nn.Module):
             h_temporal = tp(h_spatial + emb, time_context, num_frames)
             h = self.time_mixer(h_spatial, h_temporal, temporal_first=True)
 
-        h = self.proj_out(h)
+        h = linear(self.proj_out, h)
         return h.transpose(1, 2).reshape(bt, c, hgt, wid) + residual
 
 

@@ -8,7 +8,9 @@ ResnetBlock2D with a 3×1×1 temporal block, and a final 3×1×1
 ``time_conv_out`` mixes the frames.  The single-head mid-block attention
 (D = the block's channels) stays plain f32 torch, as the JAX package
 computes it in XLA: at 576×1024 it holds 14·9216² f32 scores (4.75 GB) when
-the 14 frames decode in one chunk.
+the 14 frames decode in one chunk.  The decoder's spans are the UNet's
+(``resnet`` ⊃ ``temporal``, ``conv``, ``matmul``) and ``attn1`` around the
+mid-block attention.
 """
 
 from __future__ import annotations
@@ -20,11 +22,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.activations import silu
+from ...utils import debug
 from ...utils.device import loader_device
 from .configs import SvdVaeConfig
 from .loader import count_keys, load_into
 from .unet import (GroupNorm, ResnetBlock2D, SpatioTemporalResBlock, Block, Sampler,
-                   conv2d, init_random_, temporal_conv)
+                   conv2d, init_random_, linear, temporal_conv)
 
 
 class AttentionBlock(nn.Module):
@@ -40,11 +43,12 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x):
         b, c, h, w = x.shape
-        y = self.group_norm(x).reshape(b, c, h * w).transpose(1, 2)
-        q, k, v = (lin(y).float() for lin in (self.to_q, self.to_k, self.to_v))
-        att = torch.softmax(torch.bmm(q, k.transpose(1, 2)) * c ** -0.5, dim=-1)
-        out = self.to_out[0](torch.bmm(att, v).to(x.dtype))
-        return out.transpose(1, 2).reshape(b, c, h, w) + x
+        with debug.span("attn1"):
+            y = self.group_norm(x).reshape(b, c, h * w).transpose(1, 2)
+            q, k, v = (linear(lin, y).float() for lin in (self.to_q, self.to_k, self.to_v))
+            att = torch.softmax(torch.bmm(q, k.transpose(1, 2)) * c ** -0.5, dim=-1)
+            out = linear(self.to_out[0], torch.bmm(att, v).to(x.dtype))
+            return out.transpose(1, 2).reshape(b, c, h, w) + x
 
 
 class Encoder(nn.Module):
